@@ -1,0 +1,562 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (``ldpc_tpu_torch``) on one GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. Every phase is
+fatal: the script exits nonzero, and prints no result line, when CUDA is
+missing, a kernel does not build or launch, a kernel disagrees with its
+plain PyTorch version, or the main path gives a wrong answer.
+
+Phases:
+
+1. CUDA present; the card's name and power limit (``nvidia-smi``).
+2. Build the kernels from ``ldpc_tpu_torch/csrc`` (one ``nvcc`` per source,
+   started together) and print the build time.
+3. Hold each kernel against its plain version on the card, at the main
+   path's shapes (WiMAX (1152, 576), 4096 frames, paired layers, a syndrome
+   check every two sweeps), for normalized min-sum and SPA:
+   * K1 ``mc_decoder`` (6 iterations, LLRs emitted), once with injected
+     noise words and once with in-kernel Philox against the plain version's
+     Philox words (``philox_raw``): the emitted LLRs to the channel bar
+     (rtol 1e-5, atol 1e-4); for min-sum, ok / conv / err / iters equal for
+     every frame to the plain decode of the kernel's own LLRs (min-sum is
+     exact arithmetic once the LLRs agree); for SPA, the same counters equal
+     on >= 99% of frames against the plain version (tanh and log differ by
+     ulps between implementations);
+   * K2 ``llr_decoder`` (12 iterations) from K1's LLRs with a random pre-done
+     mask: the same bars.
+   Then the same checks at 512 frames for every configuration of the
+   kernels that the main path does not run (``COVERAGE``): multi-diagonal
+   layers (CCSDS), the 16 and 32 row-degree instantiations, min-sum and
+   offset min-sum, channel modes 2 and 3, the QPSK proxy, serial layers,
+   check every 1 and 3, and 4, 2 and 1 codewords per block (the last two
+   from the big codes in ``examples/big_code``).
+4. The main path: ``PointExecutor`` at the settings of the headline bench
+   (layered SPA, 12 iterations, paired, check every 2) through
+   ``run_point(2.0, ...)`` for 64 batches of 4096 frames, twice: with
+   two-phase ``auto`` (the probe may choose a single pass) and with the
+   split forced at 6 phase-1 iterations (phase 2 is ``llr_decoder``). The
+   launch counts are zeroed just before each run and read just after; each
+   run must launch the kernels its dispatch uses, and both kernels must
+   have launched. The two runs draw the same frames, and the decode works
+   lane by lane, so their counters must be equal. FER must lie within 5
+   standard errors of 0.0065, the JAX package's FER at this point
+   (``BENCH_r04.json``), used as a statistic of the code, not as a speed.
+5. The main path's own kernel calls (SPA, Philox noise): ``mc_decoder`` as
+   ``auto`` launches it at this point (12 iterations, one pass) and as
+   phase 1 of a split, ``llr_decoder`` on that phase 1's compacted output,
+   each held against its plain version on the same inputs (the bars of
+   phase 3), then timed with CUDA events beside its plain version and its
+   bound (the larger of its operations over 67 TFLOP/s f32 and its bytes
+   over 3.35 TB/s). The ``kernels`` line carries the single pass for
+   ``mc_decoder``; its ``max_abs_err`` is the largest error of phases 3
+   (main shapes) and 5.
+6. Only with ``--fer-batches N``: the FER at the headline point, single
+   pass, paired and serial, with the in-kernel Philox noise and with words
+   drawn by ``torch.randint``, N batches of 4096 frames each.
+7. One ``kernels`` JSON line, then the device line as the last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 4096
+SNR_DB = 2.0
+REF_FER = 0.0065  # BENCH_r04.json, paired + ce2, 2 dB (a code statistic)
+MAIN_BATCHES = 64
+PHASE1, ITERS, CHECK_EVERY = 6, 12, 2
+PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
+SOURCE = "ldpc_tpu_torch/csrc/mc_decoder.cu"
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------- op census ----
+
+def check_ops(variant: str, d: int) -> int:
+    """f32 operations of one check update of degree ``d`` (one lane), each
+    compare, clip side, arithmetic op and transcendental counted once:
+    messages, leave-one-out combine, extrinsics and the posterior update."""
+    if variant == "spa":
+        # per edge: msg sub, *0.5, clip x2, tanh, clip x2 | clip x2, 1+p,
+        # 1-p, div, log | posterior add; products: 3 (d - 2) multiplies
+        return 14 * d + 3 * max(d - 2, 0)
+    # per edge: msg sub, sign (compare + select), abs | scale, sign mult,
+    # posterior add; sign products and minima: 6 (d - 2)
+    return 7 * d + 6 * max(d - 2, 0)
+
+
+def decode_ops(qc, variant: str, sweeps, windows) -> float:
+    """Operations of the decode for per-lane sweep and window counts."""
+    degrees = [len(r) for r in qc.row_slots()]
+    per_sweep = qc.Z * sum(check_ops(variant, d) for d in degrees)
+    per_window = 2 * qc.Z * sum(degrees)  # syndrome: compare + xor per edge
+    return float(per_sweep * sweeps.sum() + per_window * windows.sum())
+
+
+CHANNEL_OPS_PER_BIT = 16  # Box-Muller (shared by a column pair) + BPSK LLR
+ERROR_OPS_PER_INFO_BIT = 3  # decision, compare, add
+
+
+def lane_sweeps(ok, conv, max_it: int):
+    """Sweeps a lane's data needs: through its converging window, or all."""
+    import numpy as np
+
+    return np.where(ok, conv.astype(np.int64) + 1, max_it)
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ------------------------------------------------------------------ timing ----
+
+def time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# -------------------------------------------------------------- comparisons ----
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def frames_equal(a, b):
+    """bool [B]: err, ok, conv and iters agree per frame."""
+    err_a, ok_a, conv_a, _, it_a = a[:5]
+    err_b, ok_b, conv_b, _, it_b = b[:5]
+    return (err_a == err_b) & (ok_a == ok_b) & (conv_a == conv_b) & (it_a == it_b)
+
+
+def int_max_abs(a, b) -> float:
+    import torch
+
+    return float(max((x.to(torch.int64) - y.to(torch.int64)).abs().max().item()
+                     for x, y in zip(a[:5], b[:5]) if x.dtype != torch.float32))
+
+
+def compare(name: str, variant: str, kern, plain, bar_note: str) -> float:
+    """Kernel outputs against the plain version's: exact for the min-sum
+    family, >= 99% of frames for SPA. Returns the largest gap of err / ok /
+    conv / iters over all frames."""
+    same = frames_equal(kern, plain)
+    frac = float(same.float().mean())
+    gap = int_max_abs(kern, plain)
+    log(f"  {name}: frames equal {frac:.6f} ({bar_note}), max |int diff| "
+        f"{gap:g}, kernel's frames converged {float(kern[1].float().mean()):.4f}")
+    if variant == "spa":
+        if frac < 0.99:
+            fail(f"{name} spa agrees on {frac:.4f} of frames (< 0.99)")
+    elif frac != 1.0:
+        bad = (~same).nonzero().flatten()[:10].tolist()
+        fail(f"{name} {variant} differs from its plain version at frames {bad}")
+    return gap
+
+
+def hold_mc(tag: str, mc, dec, wT, consts, **noise):
+    """K1 against its plain version on the same inputs (``raw`` words or
+    Philox ``seeds``). The emitted LLRs to the channel bar; the counters
+    exact for the min-sum family (against the plain decode ``dec`` of the
+    kernel's own LLRs when they are emitted, since the two may differ by an
+    ulp of the channel math), on >= 99% of frames for SPA. Returns the
+    kernel's outputs and the largest error."""
+    import torch
+
+    kern = mc(wT, consts, **noise)
+    sync()
+    plain = mc.plain(wT, consts, **noise)
+    err = 0.0
+    if mc.emit_llr:
+        llr_k, llr_p = kern[5], plain[5]
+        if not torch.isfinite(llr_k).all():
+            fail(f"{tag} emitted non-finite LLRs")
+        err = float((llr_k - llr_p).abs().max())
+        log(f"  {tag}: LLR max |err| {err:.3g}, bit-equal share "
+            f"{float((llr_k == llr_p).float().mean()):.6f}")
+        if not torch.allclose(llr_k, llr_p, rtol=1e-5, atol=1e-4):
+            fail(f"{tag} LLRs outside rtol 1e-5 / atol 1e-4")
+        if mc.variant != "spa":
+            B = wT.shape[1]
+            plain = dec.plain(llr_k.clone(), wT,
+                              torch.zeros(B, device=wT.device))
+    return kern, max(err, compare(tag, mc.variant, kern, plain, "counters"))
+
+
+def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
+              iters: int, phase1: int, check_every: int, mode: int = 1,
+              modulation: int = 1, raw=None):
+    """K1 (``phase1`` iterations, LLRs emitted) with injected words, when
+    given, and with Philox noise; then K2 (``iters``) from K1's LLRs with
+    the pre-done mask ``done0``. Returns the largest error of each."""
+    import torch
+
+    from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
+
+    info_pos = code.standard_encode_spec.info_pos("orig")
+    kw = dict(layer_groups=groups, check_every=check_every)
+    mc = MCDecoder(code.qc, info_pos, phase1, variant, mode=mode,
+                   modulation=modulation, emit_llr=True, **kw)
+    dec1 = LLRDecoder(code.qc, info_pos, phase1, variant, **kw)
+    llr2 = LLRDecoder(code.qc, info_pos, iters, variant, **kw)
+    out = {"mc_decoder": 0.0, "llr_decoder": 0.0}
+    sources = ([("raw", dict(raw=raw))] if raw is not None else []) + [
+        ("philox", dict(seeds=(0x9E3779B9, 0x7F4A7C15)))]
+    for src, noise in sources:
+        kern, e = hold_mc(f"{tag} mc_decoder {src}", mc, dec1, wT, consts,
+                          **noise)
+        out["mc_decoder"] = max(out["mc_decoder"], e)
+    # K2 from the last K1 run's LLRs, as phase 2 sees them
+    k2 = llr2(kern[5], wT, done0)
+    sync()
+    p2 = llr2.plain(kern[5], wT, done0)
+    out["llr_decoder"] = compare(f"{tag} llr_decoder", variant, k2, p2,
+                                 "random pre-done mask")
+    return out
+
+
+# configurations the main path does not run, held at a small batch so that
+# every code path of the kernels meets its plain version on the card:
+# (code, layer order, variant, channel mode, modulation, iterations, check
+# every, Eb/N0 dB chosen so that some frames converge in phase 1 and some
+# do not)
+COVERAGE = [
+    # multi-diagonal layers (the additive update), kernel row degree 8
+    ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "normalized_minsum",
+     1, 1, 12, 2, 2.0),
+    ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "spa", 3, 2, 10, 1,
+     5.0),
+    ("builtin:CCSDS_ldpc_n256_k128.alist.txt", "serial", "offset_minsum", 2,
+     1, 12, 2, 2.5),
+    # row degree 15 (the 16 instantiation), partial-band, QPSK proxy
+    ("builtin:wimax_1152_0.75A.alist.txt", "serial", "offset_minsum", 2, 2,
+     12, 2, 7.0),
+    # row degree 20 and 22 (the 32 instantiation)
+    ("builtin:wimax_1152_0.83.alist.txt", "serial", "minsum", 3, 1, 12, 3,
+     3.5),
+    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5),
+    # 4, 2 and 1 codewords per block (Z = 96, 192, 384; paired)
+    ("builtin:wimax_2304_0.66B.alist.txt", "paired", "normalized_minsum", 3,
+     2, 12, 2, 5.5),
+    ("examples/big_code/wimax_like_n4608_z192.alist.txt", "paired", "minsum",
+     1, 1, 12, 2, 2.0),
+    ("examples/big_code/wimax_like_n9216_z384.alist.txt", "paired", "spa", 3,
+     2, 12, 2, 5.5),
+]
+COVER_BATCH = 512
+
+
+def phase_coverage(dev) -> float:
+    """Every COVERAGE case through :func:`hold_pair` with injected words;
+    returns the largest error over all of them."""
+    import numpy as np
+    import torch
+
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+    from ldpc_tpu_torch.ops.channel import ChannelParams
+    from ldpc_tpu_torch.ops.encode import make_encoder_T
+    from ldpc_tpu_torch.ops.mc_kernels import DRAWS_PER_BIT
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    worst = 0.0
+    gen = np.random.default_rng(2)
+    for name, order, variant, mode, modulation, iters, ce, snr in COVERAGE:
+        code = load_code(name if name.startswith("builtin:")
+                         else str(ROOT / name))
+        groups = paired_layer_groups(code.qc) if order == "paired" else None
+        u = torch.from_numpy(gen.integers(0, 2, (COVER_BATCH, code.k),
+                                          dtype=np.uint8)).to(dev)
+        wT = make_encoder_T(code.standard_encode_spec, "orig", dev)(u)
+        raw = torch.from_numpy(gen.integers(
+            0, 2**32, (DRAWS_PER_BIT[mode], code.n, COVER_BATCH),
+            dtype=np.uint32).view(np.int32)).to(dev)
+        consts = ChannelParams(mode=mode, modulation=modulation,
+                               speed=code.rate, snr_db=snr,
+                               noise_model="exact").consts(dev)
+        done0 = torch.from_numpy(
+            (gen.random(COVER_BATCH) < 0.5).astype(np.float32)).to(dev)
+        tag = (f"{code.name} {order} {variant} mode {mode} mod {modulation} "
+               f"ce{ce}")
+        out = hold_pair(tag, code, groups, variant, wT, consts, done0,
+                        iters=iters, phase1=iters // 2, check_every=ce,
+                        mode=mode, modulation=modulation, raw=raw)
+        worst = max(worst, *out.values())
+    return worst
+
+
+def phase_fer(batches: int) -> None:
+    """FER at the headline point from two independent noise sources, for
+    the paired and the serial layer order, single pass: ``philox`` is the
+    main path (``run_point``, the kernel's in-kernel Philox4x32-10);
+    ``torch`` feeds the same kernel words drawn by ``torch.randint`` on the
+    card (the injected-noise layout) through ``PointExecutor.step``. Each
+    line gives frames, frame errors, FER and its standard error."""
+    import torch
+
+    from ldpc_tpu_torch.ops.encode import random_info_bits
+    from ldpc_tpu_torch.ops.mc_kernels import DRAWS_PER_BIT
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+
+    code = load_code("builtin:wimax_1152_0.5.alist.txt")
+    for order in ("paired", "serial"):
+        opts = SimOptions(
+            matrix=code.name, iterations=ITERS, fidelity="exact", batch=BATCH,
+            seed=5, speed=0.5, schedule="layered", layer_order=order,
+            check_every=CHECK_EVERY, two_phase="off",
+        )
+        ex = PointExecutor(code, opts)
+        consts = ex.consts(SNR_DB)
+        st = ex.run_point(SNR_DB, batches * BATCH)
+        counts = {"philox": (st.blocks, st.fer_frames)}
+        gen = torch.Generator(device=ex.device).manual_seed(12345)
+        fails = torch.zeros((), dtype=torch.int64, device=ex.device)
+        for i in range(batches):
+            u = random_info_bits(gen, BATCH, code.k)
+            raw = torch.randint(-2**31, 2**31, (DRAWS_PER_BIT[1], code.n, BATCH),
+                                generator=gen, device=ex.device,
+                                dtype=torch.int32)
+            stats, _ = ex.step(i, consts, 0, u=u, raw=raw)
+            fails += (~stats.ok).sum()
+        counts["torch"] = (batches * BATCH, int(fails))
+        for source, (frames, errors) in counts.items():
+            fer = errors / frames
+            se = math.sqrt(fer * (1 - fer) / frames)
+            log(f"fer order={order} source={source} frames={frames} "
+                f"frame_errors={errors} FER={fer:.6f} se={se:.6f}")
+
+
+# ----------------------------------------------------------------- phases ----
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fer-batches", type=int, default=0, metavar="N",
+                    help="also run the FER check (phase 6) on N batches of "
+                         "4096 frames per layer order and noise source")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    t_start = time.perf_counter()
+
+    import numpy as np
+
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+    from ldpc_tpu_torch.ops import build
+    from ldpc_tpu_torch.ops.channel import ChannelParams
+    from ldpc_tpu_torch.ops.encode import make_encoder_T
+    from ldpc_tpu_torch.ops.mc_kernels import (
+        DRAWS_PER_BIT,
+        LLR_KERNEL,
+        MC_KERNEL,
+        LLRDecoder,
+        MCDecoder,
+    )
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+
+    dev = torch.device("cuda", 0)
+    log(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    built = build.build_all(verbose=True)
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # ---- 3. kernels against their plain versions ----
+    code = load_code("builtin:wimax_1152_0.5.alist.txt")
+    spec = code.standard_encode_spec
+    info_pos = spec.info_pos("orig")
+    groups = paired_layer_groups(code.qc)
+    n, k = code.n, code.k
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.integers(0, 2, (BATCH, k), dtype=np.uint8)).to(dev)
+    wT = make_encoder_T(spec, "orig", dev)(u)
+    raw = torch.from_numpy(
+        rng.integers(0, 2**32, (DRAWS_PER_BIT[1], n, BATCH), dtype=np.uint32)
+        .view(np.int32)).to(dev)
+    consts = ChannelParams(mode=1, modulation=1, speed=0.5, snr_db=SNR_DB,
+                           noise_model="exact").consts(dev)
+    gen = np.random.default_rng(1)
+    done0 = torch.from_numpy((gen.random(BATCH) < 0.5).astype(np.float32)).to(dev)
+    log("compare (wimax 1152, B=4096, paired, check every 2):")
+    errs = {"mc_decoder": 0.0, "llr_decoder": 0.0}
+    for variant in ("normalized_minsum", "spa"):
+        out = hold_pair(variant, code, groups, variant, wT, consts, done0,
+                        iters=ITERS, phase1=PHASE1, check_every=CHECK_EVERY,
+                        raw=raw)
+        errs = {name: max(errs[name], out[name]) for name in errs}
+    del raw
+    log(f"compare (other configurations, B={COVER_BATCH}, injected words "
+        "and Philox):")
+    cover_err = phase_coverage(dev)
+    log(f"  largest error over the other configurations: {cover_err:g}")
+
+    # ---- 4. the main path: as 'auto' chooses, then with the split forced ----
+    launches = {"mc_decoder": 0, "llr_decoder": 0}
+    results = {}
+    for two_phase in ("auto", str(PHASE1)):
+        opts = SimOptions(
+            matrix=code.name, blocks=BATCH, iterations=ITERS, ber=True,
+            fer=True, fidelity="exact", batch=BATCH, seed=0, speed=0.5,
+            schedule="layered", layer_order="paired", check_every=CHECK_EVERY,
+            two_phase=two_phase,
+        )
+        ex = PointExecutor(code, opts)
+        ex.run_point(SNR_DB, 2 * BATCH, point_index=99)  # warm: probe + choice
+        MC_KERNEL.launches = 0
+        LLR_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        st = ex.run_point(SNR_DB, MAIN_BATCHES * BATCH)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        run = {"mc_decoder": MC_KERNEL.launches,
+               "llr_decoder": LLR_KERNEL.launches}
+        fer = st.fer_frames / st.blocks
+        sigma = math.sqrt(REF_FER * (1 - REF_FER) / st.blocks)
+        log(f"main path two_phase={two_phase}: {st.blocks} frames in "
+            f"{elapsed:.4f} s = {st.blocks * k / elapsed:.6g} info bits/s, "
+            f"FER {fer:.6f} (ref {REF_FER}, 5 sigma {5 * sigma:.6f}), "
+            f"BER {st.error_bits / (st.blocks * k):.3e}, "
+            f"kernel {ex.kernel_used}, probe {ex.last_probe}, launches {run}")
+        if st.blocks != MAIN_BATCHES * BATCH:
+            fail(f"main path counted {st.blocks} frames")
+        if run["mc_decoder"] < 1:
+            fail("mc_decoder was not launched on the main path")
+        if "+2phase(auto:off)" not in ex.kernel_used and run["llr_decoder"] < 1:
+            fail(f"{ex.kernel_used} split batches but never launched llr_decoder")
+        if abs(fer - REF_FER) > 5 * sigma:
+            fail(f"FER {fer:.6f} is more than 5 sigma from {REF_FER}")
+        for name in launches:
+            launches[name] += run[name]
+        results[two_phase] = st
+    if results["auto"] != results[str(PHASE1)]:
+        fail(f"the dispatch modes disagree: {results}")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"{name} was not launched on the main path")
+
+    # ---- 5. the main path's own launches, held and timed ----
+    # K1 as 'auto' launches it at this point (12 iterations, single pass),
+    # K1 as phase 1 of a split (6 iterations, LLRs emitted), and K2 on that
+    # phase 1's compacted output; Philox noise, as on the main path
+    key = (0x243F6A88, 0x85A308D3)
+    kw = dict(layer_groups=groups, check_every=CHECK_EVERY)
+    mc_full = MCDecoder(code.qc, info_pos, ITERS, "spa", **kw)
+    mc1 = MCDecoder(code.qc, info_pos, PHASE1, "spa", emit_llr=True, **kw)
+    llr_dec = LLRDecoder(code.qc, info_pos, ITERS, "spa", **kw)
+    log("compare (the main path's configuration: spa, Philox):")
+    o_full, e_full = hold_mc("mc_decoder 12 it", mc_full, None, wT, consts,
+                             seeds=key)
+    o1, e1 = hold_mc("mc_decoder phase 1", mc1, None, wT, consts, seeds=key)
+    order = torch.argsort(o1[1].to(torch.int32), stable=True)
+    llr_s = o1[5].index_select(1, order)
+    w_s = wT.index_select(1, order)
+    done0 = o1[1].index_select(0, order).to(torch.float32)
+    o2 = llr_dec(llr_s, w_s, done0)
+    sync()
+    e2 = compare("llr_decoder phase 2", "spa", o2,
+                 llr_dec.plain(llr_s, w_s, done0), "compacted phase 1")
+    errs = {"mc_decoder": max(errs["mc_decoder"], e_full, e1),
+            "llr_decoder": max(errs["llr_decoder"], e2)}
+
+    def mc_bound(o, max_it, emit):
+        sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), max_it)
+        ops = (decode_ops(code.qc, "spa", sw, sw // CHECK_EVERY)
+               + BATCH * (n * CHANNEL_OPS_PER_BIT + k * ERROR_OPS_PER_INFO_BIT))
+        nbytes = 4 * n * BATCH * (2 if emit else 1) + 32 + 17 * BATCH
+        return bound_ms(ops, nbytes) + (int(sw.sum()),)
+
+    b_full, by_full, sw_full = mc_bound(o_full, ITERS, False)
+    b1, by1, sw1 = mc_bound(o1, PHASE1, True)
+    active = done0.cpu().numpy() < 0.5
+    sw2 = lane_sweeps(o2[1].cpu().numpy()[active], o2[2].cpu().numpy()[active],
+                      ITERS)
+    ops2 = (decode_ops(code.qc, "spa", sw2, sw2 // CHECK_EVERY)
+            + active.sum() * k * ERROR_OPS_PER_INFO_BIT)
+    bytes2 = 4 * n * 2 * int(active.sum()) + 21 * BATCH  # llr + w of live lanes
+    b2, by2 = bound_ms(ops2, bytes2)
+
+    t_full = time_ms(lambda: mc_full(wT, consts, seeds=key), reps=20)
+    t_k1 = time_ms(lambda: mc1(wT, consts, seeds=key), reps=20)
+    t_k2 = time_ms(lambda: llr_dec(llr_s, w_s, done0), reps=20)
+    t_pfull = time_ms(lambda: mc_full.plain(wT, consts, seeds=key), reps=2,
+                      warm=1)
+    t_p1 = time_ms(lambda: mc1.plain(wT, consts, seeds=key), reps=2, warm=1)
+    t_p2 = time_ms(lambda: llr_dec.plain(llr_s, w_s, done0), reps=2, warm=1)
+    log(f"timing (spa, B=4096): mc_decoder 12 it {t_full:.4f} ms (plain "
+        f"{t_pfull:.3f} ms, bound {b_full:.5f} ms by {by_full}, {sw_full} lane "
+        f"sweeps); mc_decoder phase 1 {t_k1:.4f} ms (plain {t_p1:.3f} ms, "
+        f"bound {b1:.5f} ms by {by1}, {sw1} lane sweeps); llr_decoder "
+        f"{t_k2:.4f} ms (plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, "
+        f"{int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
+
+    if args.fer_batches:
+        phase_fer(args.fer_batches)
+
+    kernels = [
+        {"name": "mc_decoder", "route": "cuda", "source": SOURCE,
+         "replaces": "ldpc_tpu/ops/mc_pallas.py:378",
+         "launches": launches["mc_decoder"], "max_abs_err": errs["mc_decoder"],
+         "ms": t_full, "plain_ms": t_pfull, "bound_ms": b_full,
+         "bound_by": by_full, "library_ms": None},
+        {"name": "llr_decoder", "route": "cuda", "source": SOURCE,
+         "replaces": "ldpc_tpu/ops/mc_pallas.py:603",
+         "launches": launches["llr_decoder"], "max_abs_err": errs["llr_decoder"],
+         "ms": t_k2, "plain_ms": t_p2, "bound_ms": b2, "bound_by": by2,
+         "library_ms": None},
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,280 @@
+"""Plain PyTorch version of the QC layered decode loop.
+
+Counterpart of ``ldpc_tpu/ops/spa_pallas.py:59-574`` (``make_check_update``
+and ``make_decode_loop``, the body shared by the fused Monte-Carlo kernels).
+It repeats the CUDA decode loop's arithmetic in the same op order
+(csrc/mc_decoder.cu, ``decode_block``) on ``[n, B]`` tensors, rows
+``bj * Z + z``, codewords on the minor axis. The CPU tests hold it against
+the JAX package; on the card ``chip_smoke.py`` holds the kernels against it.
+Nothing on the main path calls it when a card is present.
+
+What it covers, as the kernels do: the layered (serial-C) schedule over base
+rows in the flattened order of ``layer_groups``; overwrite updates for
+single-diagonal layers and the additive update ``L += roll(E_new - E_old)``
+for multi-diagonal ones (CCSDS); SPA and the min-sum family with a scalar
+alpha / beta; a syndrome check every ``check_every`` sweeps with the window's
+``active`` set fixed; a per-lane pre-done mask. Still to be ported
+(ROADMAP.md): the flooding schedule, the normalized-LLR metric, int8
+extrinsic storage and per-iteration alpha schedules.
+
+Every op is per lane, so a lane's trajectory does not depend on the others.
+Only ``iters`` does: the kernel runs a block of ``lanes`` codewords until all
+of them are done, and reports that block's trip count to each of its lanes;
+this version counts the same per-block trips.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ldpc_tpu_torch.models.qc import QCLayout
+from ldpc_tpu_torch.ops.spa import PROD_CLIP_F32, TANH_IN_CLIP, exclusive_combine
+
+VARIANTS = ("spa", "minsum", "normalized_minsum", "offset_minsum")
+
+
+def normalize_variant(variant: str) -> str:
+    v = variant.lower().replace("-", "_")
+    if v not in VARIANTS:
+        raise ValueError(f"decode loop does not support variant {variant!r}")
+    return v
+
+
+@dataclass(frozen=True)
+class QCTables:
+    """Static schedule of one QC code: flattened edge slots and layer groups.
+
+    ``row_off[bi]`` is the first flattened E slot of base row ``bi``;
+    ``slot_col`` / ``slot_shift`` give the (base column, shift) of each slot;
+    ``groups`` are the layer steps in schedule order (1 or ``R`` rows each);
+    ``row_dup[bi]`` marks a multi-diagonal row (one base column twice).
+    """
+
+    qc: QCLayout
+    groups: tuple[tuple[int, ...], ...]
+    row_off: np.ndarray  # int32 [mb + 1]
+    slot_col: np.ndarray  # int32 [e_slots]
+    slot_shift: np.ndarray  # int32 [e_slots]
+    row_dup: np.ndarray  # int32 [mb]
+
+    @property
+    def e_slots(self) -> int:
+        return int(self.row_off[-1])
+
+    @property
+    def R(self) -> int:
+        """Rows per layer step (1, or 2 for paired groups)."""
+        return max(len(g) for g in self.groups)
+
+    @property
+    def dmax(self) -> int:
+        return int(np.diff(self.row_off).max())
+
+    @property
+    def has_dup(self) -> bool:
+        return bool(self.row_dup.any())
+
+    @property
+    def order(self) -> list[int]:
+        return [bi for g in self.groups for bi in g]
+
+
+def build_tables(qc: QCLayout, layer_groups=None) -> QCTables:
+    """Validate ``layer_groups`` as ``make_decode_loop`` does and flatten the
+    QC graph into the slot tables both decode-loop versions read."""
+    row_slots = qc.row_slots()
+    mb = qc.mb
+    if layer_groups is None:
+        groups = [[bi] for bi in range(mb)]
+    else:
+        flat = sorted(bi for g in layer_groups for bi in g)
+        if flat != list(range(mb)):
+            raise ValueError(
+                f"layer_groups must partition base rows 0..{mb - 1}: "
+                f"{layer_groups!r}"
+            )
+        for g in layer_groups:
+            if len(g) > 2:
+                raise ValueError(f"layer groups hold 1 or 2 rows: {g!r}")
+            if len(g) == 2:
+                a = {bj for bj, _ in row_slots[g[0]]}
+                b = {bj for bj, _ in row_slots[g[1]]}
+                if a & b:
+                    raise ValueError(
+                        f"layer group {g} rows share base columns "
+                        f"{sorted(a & b)} -- grouped rows must be disjoint"
+                    )
+        groups = [list(g) for g in layer_groups]
+    row_off = np.zeros(mb + 1, np.int32)
+    for bi, r in enumerate(row_slots):
+        row_off[bi + 1] = row_off[bi] + len(r)
+    slots = [s for r in row_slots for s in r]
+    slot_col = np.asarray([bj for bj, _ in slots], np.int32)
+    slot_shift = np.asarray([s % qc.Z for _, s in slots], np.int32)
+    row_dup = np.asarray(
+        [len({bj for bj, _ in r}) < len(r) for r in row_slots], np.int32
+    )
+    return QCTables(qc=qc, groups=tuple(tuple(g) for g in groups),
+                    row_off=row_off, slot_col=slot_col,
+                    slot_shift=slot_shift, row_dup=row_dup)
+
+
+def check_update(msgs: torch.Tensor, variant: str, alpha: float,
+                 beta: float) -> torch.Tensor:
+    """Leave-one-out check update of one row: ``msgs`` [d, ...] -> [d, ...].
+
+    The elementwise steps run on the stacked slots at once (elementwise ops
+    do not depend on batching); the products and minima fold slot by slot in
+    :func:`exclusive_combine` order, as the kernel does."""
+    if variant == "spa":
+        t = torch.clamp(
+            torch.tanh(torch.clamp(msgs * 0.5, -TANH_IN_CLIP, TANH_IN_CLIP)),
+            -PROD_CLIP_F32, PROD_CLIP_F32,
+        )
+        excl = exclusive_combine(list(t.unbind(0)), torch.mul)
+        p = torch.stack([torch.ones_like(msgs[0]) if e is None else e
+                         for e in excl])
+        p = torch.clamp(p, -PROD_CLIP_F32, PROD_CLIP_F32)
+        return torch.log((1.0 + p) / (1.0 - p))
+    sgn = torch.where(msgs < 0, -1.0, 1.0).to(torch.float32)
+    mag = torch.abs(msgs)
+    excl_sgn = exclusive_combine(list(sgn.unbind(0)), torch.mul)
+    excl_mag = exclusive_combine(list(mag.unbind(0)), torch.minimum)
+    sg = torch.stack([torch.ones_like(msgs[0]) if e is None else e
+                      for e in excl_sgn])
+    mg = torch.stack([torch.full_like(msgs[0], 1e30) if e is None else e
+                      for e in excl_mag])
+    if variant == "normalized_minsum":
+        mg = alpha * mg
+    elif variant == "offset_minsum":
+        mg = torch.clamp_min(mg - beta, 0.0)
+    return sg * mg
+
+
+class DecodeLoop:
+    """The plain layered decode loop of one code on one device.
+
+    ``run(L, done0)`` decodes in place: ``L`` f32 [n, B] holds the channel
+    LLRs in the log(p0/p1) domain on entry and the final posteriors (frozen
+    at each lane's convergence) on exit. Returns ``(done, conv, iters)``:
+    bool / int32 / int32 [B].
+    """
+
+    def __init__(self, tables: QCTables, max_iterations: int, variant: str,
+                 *, alpha: float = 0.75, beta: float = 0.15,
+                 check_every: int = 1, lanes: int = 128,
+                 device: str | torch.device = "cpu"):
+        if check_every < 1 or max_iterations % check_every:
+            raise ValueError(
+                f"check_every={check_every} must divide "
+                f"max_iterations={max_iterations}"
+            )
+        if np.ndim(alpha) != 0:
+            raise NotImplementedError(
+                "per-iteration alpha schedules are not ported yet (ROADMAP.md)"
+            )
+        self.tables = tables
+        self.max_iterations = int(max_iterations)
+        self.variant = normalize_variant(variant)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.check_every = int(check_every)
+        self.lanes = int(lanes)
+        qc = tables.qc
+        Z = qc.Z
+        z = np.arange(Z)
+        # per row: L rows read by its slots (bj * Z + (z + s) % Z), slot-major
+        self._rows = []
+        for bi in range(qc.mb):
+            lo, hi = int(tables.row_off[bi]), int(tables.row_off[bi + 1])
+            idx = np.concatenate([
+                tables.slot_col[j] * Z + (z + tables.slot_shift[j]) % Z
+                for j in range(lo, hi)
+            ]) if hi > lo else np.zeros(0, np.int64)
+            self._rows.append((lo, hi, bool(tables.row_dup[bi]),
+                               torch.as_tensor(idx, dtype=torch.long,
+                                               device=device)))
+        # syndrome: every edge's variable row and check row
+        var_idx = np.concatenate([r[3].cpu().numpy() for r in self._rows])
+        chk_idx = np.concatenate([
+            bi * Z + np.tile(z, int(tables.row_off[bi + 1] - tables.row_off[bi]))
+            for bi in range(qc.mb)
+        ])
+        self._var_idx = torch.as_tensor(var_idx, dtype=torch.long, device=device)
+        self._chk_idx = torch.as_tensor(chk_idx, dtype=torch.long, device=device)
+
+    def sweep(self, L: torch.Tensor, E: torch.Tensor,
+              active: torch.Tensor) -> None:
+        """One layered sweep in schedule order, in place on L and E."""
+        qc = self.tables.qc
+        Z = qc.Z
+        B = L.shape[1]
+        for bi in self.tables.order:
+            lo, hi, dup, idx = self._rows[bi]
+            d = hi - lo
+            if d == 0:
+                continue
+            old = L.index_select(0, idx)  # [d*Z, B]
+            e_old = E[lo:hi]  # [d, Z, B]
+            msgs = old.view(d, Z, B) - e_old
+            e_new = check_update(msgs, self.variant, self.alpha, self.beta)
+            if dup:
+                # multi-diagonal row: extrinsic deltas accumulate per base
+                # column in slot order, then add to the posterior
+                deltas: dict[int, torch.Tensor] = {}
+                for j in range(d):
+                    bj = int(self.tables.slot_col[lo + j])
+                    s = int(self.tables.slot_shift[lo + j])
+                    dj = torch.roll(e_new[j] - e_old[j], shifts=s, dims=0)
+                    deltas[bj] = dj if bj not in deltas else deltas[bj] + dj
+                for bj, acc in deltas.items():
+                    blk = L[bj * Z:(bj + 1) * Z]
+                    L[bj * Z:(bj + 1) * Z] = torch.where(active, blk + acc, blk)
+            else:
+                l_new = (msgs + e_new).view(d * Z, B)
+                L.index_copy_(0, idx, torch.where(active, l_new, old))
+            E[lo:hi] = torch.where(active, e_new, e_old)
+
+    def unsatisfied(self, L: torch.Tensor) -> torch.Tensor:
+        """bool [B]: some check of the lane fails (bit = L < 0)."""
+        qc = self.tables.qc
+        bits = (L.index_select(0, self._var_idx) < 0).to(torch.int32)
+        par = torch.zeros((qc.mb * qc.Z, L.shape[1]), dtype=torch.int32,
+                          device=L.device)
+        par.index_add_(0, self._chk_idx, bits)
+        return ((par & 1) != 0).any(dim=0)
+
+    def run(self, L: torch.Tensor, done0: torch.Tensor):
+        qc = self.tables.qc
+        n, B = L.shape
+        if n != qc.n:
+            raise ValueError(f"L has {n} rows, the code has n={qc.n}")
+        dev = L.device
+        E = torch.zeros((self.tables.e_slots, qc.Z, B), dtype=torch.float32,
+                        device=dev)
+        done = done0.to(torch.bool).clone()
+        conv = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        nt = -(-B // self.lanes)
+        pad = nt * self.lanes - B
+        trips = torch.zeros(nt, dtype=torch.int32, device=dev)
+        ce = self.check_every
+        it = 0
+        while it < self.max_iterations:
+            tile_live = ~torch.nn.functional.pad(done, (0, pad), value=True) \
+                .view(nt, self.lanes).all(dim=1)
+            if not bool(tile_live.any()):
+                break
+            active = ~done
+            for _ in range(ce):
+                self.sweep(L, E, active)
+            ok_now = ~self.unsatisfied(L)
+            conv = torch.where(active & ok_now,
+                               torch.full_like(conv, it + ce - 1), conv)
+            done = done | ok_now
+            trips += ce * tile_live.to(torch.int32)
+            it += ce
+        iters = trips.repeat_interleave(self.lanes)[:B]
+        return done, conv, iters

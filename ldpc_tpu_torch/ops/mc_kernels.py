@@ -1,0 +1,500 @@
+"""Fused Monte-Carlo kernels (CUDA) and their plain PyTorch versions.
+
+Replaces the two Pallas kernels of the JAX package's main path:
+
+* ``ldpc_tpu/ops/mc_pallas.py:142`` ``make_mc_decoder`` (kernel body
+  ``:295-376``, ``pallas_call`` ``:378``) by :class:`MCDecoder`: modulation,
+  noise, channel LLRs, the QC decode loop and the info-bit error counts in one
+  kernel, optionally emitting the channel LLRs for phase 2;
+* ``ldpc_tpu/ops/mc_pallas.py:494`` ``make_llr_decoder`` (kernel body
+  ``:561-601``, ``pallas_call`` ``:603``) by :class:`LLRDecoder`: the same
+  decode and counts from given LLRs with a per-lane pre-done mask.
+
+Both kernels live in ``csrc/mc_decoder.cu`` and share one ``__device__``
+decode loop, the counterpart of ``spa_pallas.make_decode_loop``. What bounds
+them on the card: the decode is a chain of dependent layer steps per
+codeword, each a gather along Z, a leave-one-out combine and a scatter, with
+a block barrier between steps; the card's memory traffic is small (the
+codeword bits in, five counter rows out, the LLRs when emitted). So they are
+bound by operations and by the latency of those steps. The design keeps a
+block's posteriors L and extrinsics E in shared memory for the whole decode
+(no device-memory traffic per iteration), gives every (row, z, codeword) of
+a layer step its own thread, so a roll along Z is an indexed shared-memory
+read and a single-diagonal layer needs no atomics, and runs the rows of a
+paired layer group in the same step.
+
+Each wrapper takes its plain version for a tensor on the CPU and launches
+the kernel for a CUDA tensor (it raises on what the kernel does not take;
+there is no fallback). ``MC_KERNEL.launches`` / ``LLR_KERNEL.launches``
+count the launches.
+
+Noise: ``raw`` words in the injected layout of the JAX kernel's
+``noise_source='input'`` ([draws, n, B] uint32, :data:`DRAWS_PER_BIT`), or a
+counter-based Philox4x32-10 keyed by two words the caller derives from
+(seed, point, batch). Philox fills the same layout (:func:`philox_raw`), and
+both go through one Box-Muller with the 48-bit radial uniform
+(``mc_pallas.py:82-120``; magnitude cap 8.24 sigma).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ldpc_tpu_torch.models.qc import QCLayout
+from ldpc_tpu_torch.ops.build import Kernel
+from ldpc_tpu_torch.ops.channel import CONSTS_ORDER
+from ldpc_tpu_torch.ops.decode_loop import (
+    DecodeLoop,
+    QCTables,
+    build_tables,
+    normalize_variant,
+)
+
+TWO_PI = 2.0 * math.pi
+_U24 = float(2.0**-24)
+_HALF_U24 = float(2.0**-25)
+_U48 = float(2.0**-48)
+_HALF_U48 = float(2.0**-49)
+_ONE_MINUS_U24 = float(1.0 - 2.0**-24)  # largest f32 strictly below 1
+_M32 = 0xFFFFFFFF
+
+# raw-plane slots per bit in the injected layout, by channel mode: each
+# normal pair takes three planes (radial hi, radial lo, angle), mode 2 adds
+# the jam uniform (``mc_pallas.py:123-130``)
+DRAWS_PER_BIT = {1: 3, 2: 7, 3: 6}
+
+_VARIANT_CODE = {"spa": 0, "minsum": 1, "normalized_minsum": 2,
+                 "offset_minsum": 3}
+_DMAX_TEMPLATES = (8, 16, 32)  # kernel instantiations by max row degree
+_SMEM_LIMIT = 225 * 1024  # dynamic shared memory a block may use (H100)
+_MAX_THREADS = 1024
+
+
+# ---------------------------------------------------------------- noise ----
+
+def _words(raw: torch.Tensor) -> torch.Tensor:
+    """uint32 / int32 words -> int64 in [0, 2^32)."""
+    return raw.to(torch.int64) & _M32
+
+
+def uniform01(w: torch.Tensor) -> torch.Tensor:
+    """word -> f32 uniform in (0, 1) with a 24-bit mantissa."""
+    return (w >> 8).to(torch.int32).to(torch.float32) * _U24 + _HALF_U24
+
+
+def uniform01_48(hi_w: torch.Tensor, lo_w: torch.Tensor) -> torch.Tensor:
+    """Two words -> f32 uniform in (0, 1) with 48-bit depth (min 2^-49)."""
+    hi = (hi_w >> 8).to(torch.int32).to(torch.float32)
+    lo = (lo_w >> 8).to(torch.int32).to(torch.float32)
+    return torch.clamp_max(hi * _U24 + (lo * _U48 + _HALF_U48), _ONE_MINUS_U24)
+
+
+def box_muller2(raw1, raw1_lo, raw2):
+    """Two independent standard normals (cos, sin) from three words."""
+    u1 = uniform01_48(_words(raw1), _words(raw1_lo))
+    u2 = uniform01(_words(raw2))
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    ang = TWO_PI * u2
+    return r * torch.cos(ang), r * torch.sin(ang)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit halves of ``a * m`` for ``a`` in [0, 2^32), exact in
+    int64 (the product is split at 16 bits)."""
+    t_lo = (a & 0xFFFF) * m
+    t_hi = (a >> 16) * m
+    s = ((t_hi & 0xFFFF) << 16) + t_lo
+    return ((t_hi >> 16) + (s >> 32)) & _M32, s & _M32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors of 32-bit words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _M32
+            k1 = (k1 + 0xBB67AE85) & _M32
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_raw(key: tuple[int, int], n: int, Z: int, B: int, mode: int,
+               device) -> torch.Tensor:
+    """The Philox source's words in the injected layout, int64 [draws, n, B].
+
+    Column pair p (base columns 2p, 2p+1), row z and lane b draw
+    ``philox(counter=(b, p*Z + z, call, 0), key)``. Call 0 gives planes
+    0-2 of column 2p (and, in mode 2, the jam word of column 2p); call 1
+    (modes 2/3) planes 3-5 of column 2p and the jam word of column 2p+1.
+    The kernel draws the same words in place."""
+    nb = n // Z
+    P = (nb + 1) // 2
+    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    b = torch.arange(B, dtype=torch.int64, device=device).view(1, 1, B)
+    pz = torch.arange(P * Z, dtype=torch.int64, device=device).view(P, Z, 1)
+    c0 = b.expand(P, Z, B)
+    c1 = pz.expand(P, Z, B)
+    zero = torch.zeros((P, Z, B), dtype=torch.int64, device=device)
+    raw = torch.zeros((DRAWS_PER_BIT[mode], nb, Z, B), dtype=torch.int64,
+                      device=device)
+    x = philox4x32(c0, c1, zero, zero, k0, k1)
+    for d in range(3):
+        raw[d, 0::2] = x[d]
+    if mode != 1:
+        y = philox4x32(c0, c1, zero + 1, zero, k0, k1)
+        for d in range(3):
+            raw[3 + d, 0::2] = y[d]
+        if mode == 2:
+            raw[6, 0::2] = x[3]
+            raw[6, 1::2] = y[3][: nb // 2]
+    return raw.view(DRAWS_PER_BIT[mode], n, B)
+
+
+def channel_llr_reference(wT: torch.Tensor, raw: torch.Tensor,
+                          consts: torch.Tensor, mode: int, modulation: int,
+                          Z: int) -> torch.Tensor:
+    """Plain version of the kernel's bits -> LLR transform (channel sign
+    convention, before the negation into log(p0/p1)); counterpart of
+    ``mc_pallas.channel_llr_reference``. Adjacent base columns share one
+    Box-Muller draw (cos to the even column, sin to the odd one, both from
+    the even column's planes); mode 2's jam uniform reads plane 6 of its own
+    column."""
+    amp = 1.0 if modulation == 1 else 0.7
+    n, B = wT.shape
+    nb = n // Z
+    c = {name: consts[i] for i, name in enumerate(CONSTS_ORDER)}
+    sym = (2.0 * wT.to(torch.float32) - 1.0) * amp
+    rw = raw.view(raw.shape[0], nb, Z, B)
+    ev = slice(0, nb, 2)
+
+    def normals(d0):
+        a, b = box_muller2(rw[d0, ev], rw[d0 + 1, ev], rw[d0 + 2, ev])
+        z = torch.empty((nb, Z, B), dtype=torch.float32, device=wT.device)
+        z[0::2] = a
+        z[1::2] = b[: nb // 2]
+        return z.view(n, B)
+
+    zA = normals(0)
+    if mode == 1:
+        return c["llr_scale"] * (sym + c["noise1_std"] * zA)
+    zB = normals(3)
+    n1 = c["sigma1"] * zA
+    n2 = c["sigma2"] * zB
+    if mode == 2:
+        jam = uniform01(_words(raw[6])) < c["p"]
+        return torch.where(jam, (sym + n1 + n2) * c["l_c2"],
+                           (sym + n1) * c["l_c1"])
+    return ((sym + n1 + n2) * c["p"] + (sym + n1) * (1.0 - c["p"])) * c["l_c3"]
+
+
+# -------------------------------------------------------------- kernels ----
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+
+# decode-loop arguments shared by both kernels (see csrc/mc_decoder.cu)
+_LOOP_ARGS = [_P,  # tables
+              _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R lpb B
+              _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
+              _I, _I]  # dmax has_dup
+
+MC_KERNEL = Kernel(
+    "mc_decoder", "mc_decoder_launch",
+    [_P, _P, _P,  # w, raw, consts
+     _P, _P, _P, _P, _P, _P]  # err ok conv norm iters llr_out
+    + _LOOP_ARGS
+    + [_I, _F, _I, _U, _U, _I,  # mode amp noise_input key0 key1 skip
+       _I, _P],  # device stream
+)
+LLR_KERNEL = Kernel(
+    "mc_decoder", "llr_decoder_launch",
+    [_P, _P, _P,  # llr, w, done0
+     _P, _P, _P, _P, _P]  # err ok conv norm iters
+    + _LOOP_ARGS
+    + [_I, _P],  # device stream
+)
+
+
+def kernel_dmax(tables: QCTables) -> int:
+    for d in _DMAX_TEMPLATES:
+        if tables.dmax <= d:
+            return d
+    raise ValueError(
+        f"row degree {tables.dmax} exceeds the kernel's largest "
+        f"instantiation ({_DMAX_TEMPLATES[-1]})"
+    )
+
+
+def table_len(tables: QCTables) -> int:
+    """Ints of the schedule tables the kernel stages in shared memory."""
+    qc = tables.qc
+    ng = len(tables.groups)
+    return (qc.mb + 1) + 2 * tables.e_slots + ng * tables.R + ng + qc.mb
+
+
+def smem_bytes(tables: QCTables, lpb: int) -> int:
+    """Dynamic shared memory of one block: L, E (and the delta scratch of
+    multi-diagonal rows) for ``lpb`` codewords, plus the tables."""
+    qc = tables.qc
+    per_lane = qc.n + tables.e_slots * qc.Z
+    if tables.has_dup:
+        per_lane += tables.R * kernel_dmax(tables) * qc.Z
+    return 4 * (lpb * per_lane + table_len(tables))
+
+
+def lanes_per_block(tables: QCTables) -> int:
+    """Codewords per block: the most of 8/4/2/1 whose threads
+    (lanes x rows per step x Z) and shared memory fit one block."""
+    for lpb in (8, 4, 2, 1):
+        if (lpb * tables.R * tables.qc.Z <= _MAX_THREADS
+                and smem_bytes(tables, lpb) <= _SMEM_LIMIT):
+            return lpb
+    raise ValueError(
+        f"code n={tables.qc.n}, Z={tables.qc.Z} does not fit one block "
+        "of the decode kernel"
+    )
+
+
+class _FusedBase:
+    """What both decoders share: the schedule, its device tables, the plain
+    decode loop and the error count."""
+
+    def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
+                 variant: str, *, alpha: float, beta: float, schedule: str,
+                 layer_groups, check_every: int):
+        if schedule != "layered":
+            raise NotImplementedError(
+                f"schedule {schedule!r}: the port's fused kernels run the "
+                "layered schedule only; flooding is still to be ported "
+                "(ROADMAP.md)"
+            )
+        self.qc = qc
+        self.variant = normalize_variant(variant)
+        self.tables = build_tables(qc, layer_groups)
+        self.max_iterations = int(max_iterations)
+        self.alpha, self.beta = float(alpha), float(beta)
+        self.check_every = int(check_every)
+        if self.check_every < 1 or self.max_iterations % self.check_every:
+            raise ValueError(
+                f"check_every={check_every} must divide "
+                f"max_iterations={max_iterations}"
+            )
+        self.info_pos = np.asarray(info_pos, np.int64)
+        self.lanes = lanes_per_block(self.tables)
+        self._dmax = kernel_dmax(self.tables)
+        self._per_device: dict = {}
+
+    def _dev(self, device: torch.device):
+        """(plain decode loop, info index, kernel tables) for one device."""
+        key = str(device)
+        if key not in self._per_device:
+            t = self.tables
+            info_mask = np.zeros(self.qc.n, np.int32)
+            info_mask[self.info_pos] = 1
+            groups = np.full((len(t.groups), t.R), -1, np.int32)
+            for g, rows in enumerate(t.groups):
+                groups[g, :len(rows)] = rows
+            grp_dup = np.asarray(
+                [int(any(t.row_dup[bi] for bi in rows)) for rows in t.groups],
+                np.int32)
+            tab = np.concatenate([t.row_off, t.slot_col, t.slot_shift,
+                                  groups.ravel(), grp_dup, t.row_dup,
+                                  info_mask]).astype(np.int32)
+            loop = DecodeLoop(t, self.max_iterations, self.variant,
+                              alpha=self.alpha, beta=self.beta,
+                              check_every=self.check_every, lanes=self.lanes,
+                              device=device)
+            self._per_device[key] = (
+                loop,
+                torch.as_tensor(self.info_pos, device=device),
+                torch.as_tensor(tab, device=device),
+            )
+        return self._per_device[key]
+
+    def _count_errors(self, L: torch.Tensor, wT: torch.Tensor) -> torch.Tensor:
+        _, info, _ = self._dev(L.device)
+        est = L.index_select(0, info) < 0
+        x = wT.index_select(0, info) != 0
+        return (est != x).sum(dim=0).to(torch.int32)
+
+    def _loop_args(self, tab: torch.Tensor, B: int) -> list:
+        t, qc = self.tables, self.qc
+        return [tab.data_ptr(), qc.n, qc.Z, qc.nb, qc.mb, t.e_slots,
+                len(t.groups), t.R, self.lanes, B, self.max_iterations,
+                self.check_every, _VARIANT_CODE[self.variant], self.alpha,
+                self.beta, self._dmax, int(t.has_dup)]
+
+    @staticmethod
+    def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+            raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    @staticmethod
+    def _outputs(B: int, device):
+        return (torch.empty(B, dtype=torch.int32, device=device),
+                torch.empty(B, dtype=torch.bool, device=device),
+                torch.empty(B, dtype=torch.int32, device=device),
+                torch.empty(B, dtype=torch.float32, device=device),
+                torch.empty(B, dtype=torch.int32, device=device))
+
+
+class MCDecoder(_FusedBase):
+    """``mc_step(wT, consts, seeds=None, raw=None, skip=0)``.
+
+    ``wT``: f32 [n, B] transmitted code bits (0/1), codewords on the minor
+    axis. ``consts``: f32 [8] from ``ChannelParams.consts``. Noise comes from
+    ``raw`` (uint32 or int32 [draws, n, B] words in the injected layout)
+    when given, else from Philox keyed by ``seeds`` (two 32-bit ints).
+    ``skip`` nonzero pre-marks every lane done.
+
+    Returns ``(err, ok, conv, norm, iters)``: int32 / bool / int32 / f32 /
+    int32 [B]; ``err`` counts info-bit mismatches in every frame (callers
+    apply the failed-frames rule); ``conv`` is the check iteration of
+    convergence or -1; ``norm`` is zeros (the metric is not ported);
+    ``iters`` is the trip count of the lane's block. ``emit_llr`` appends
+    the channel LLRs, f32 [n, B] in the log(p0/p1) domain.
+    """
+
+    def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
+                 variant: str = "spa", *, mode: int = 1, modulation: int = 1,
+                 alpha: float = 0.75, beta: float = 0.15,
+                 schedule: str = "layered", emit_llr: bool = False,
+                 layer_groups=None,
+                 check_every: int = 1):
+        if mode not in DRAWS_PER_BIT:
+            raise ValueError(f"Unknown channel mode: {mode}")
+        if modulation not in (1, 2):
+            raise ValueError("MC kernel supports modulation 1 (BPSK) / 2 (QPSK proxy)")
+        super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
+                         beta=beta, schedule=schedule,
+                         layer_groups=layer_groups, check_every=check_every)
+        self.mode, self.modulation = mode, modulation
+        self.amp = 1.0 if modulation == 1 else 0.7
+        self.emit_llr = emit_llr
+
+    def __call__(self, wT, consts, seeds=None, raw=None, skip=0):
+        if wT.device.type == "cpu":
+            return self.plain(wT, consts, seeds=seeds, raw=raw, skip=skip)
+        if wT.device.type != "cuda":
+            raise ValueError(f"no kernel for device {wT.device}")
+        return self._launch(wT, consts, seeds, raw, skip)
+
+    def plain(self, wT, consts, seeds=None, raw=None, skip=0):
+        """The kernel's arithmetic in PyTorch, on any device."""
+        n, B = wT.shape
+        dev = wT.device
+        loop, _, _ = self._dev(dev)
+        if raw is None:
+            if seeds is None:
+                raise ValueError("pass raw words or Philox seeds")
+            raw = philox_raw(seeds, n, self.qc.Z, B, self.mode, dev)
+        L = -channel_llr_reference(wT, raw, consts, self.mode,
+                                   self.modulation, self.qc.Z)
+        llr = L.clone() if self.emit_llr else None
+        done0 = torch.full((B,), bool(skip), dtype=torch.bool, device=dev)
+        done, conv, iters = loop.run(L, done0)
+        out = (self._count_errors(L, wT), done, conv,
+               torch.zeros(B, dtype=torch.float32, device=dev), iters)
+        return out + (llr,) if self.emit_llr else out
+
+    def _launch(self, wT, consts, seeds, raw, skip):
+        dev = wT.device
+        n, B = self.qc.n, wT.shape[1]
+        self._check("wT", wT, torch.float32, (n, B), dev)
+        self._check("consts", consts, torch.float32, (8,), dev)
+        if raw is not None:
+            self._check("raw", raw, (torch.uint32, torch.int32),
+                        (DRAWS_PER_BIT[self.mode], n, B), dev)
+            key = (0, 0)
+        elif seeds is None:
+            raise ValueError("pass raw words or Philox seeds")
+        else:
+            key = (int(seeds[0]) & _M32, int(seeds[1]) & _M32)
+        _, _, tab = self._dev(dev)
+        outs = self._outputs(B, dev)
+        llr = (torch.empty((n, B), dtype=torch.float32, device=dev)
+               if self.emit_llr else None)
+        if B == 0:  # nothing to launch
+            return outs + (llr,) if self.emit_llr else outs
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            MC_KERNEL(
+                wT.data_ptr(), None if raw is None else raw.data_ptr(),
+                consts.data_ptr(), *(o.data_ptr() for o in outs),
+                None if llr is None else llr.data_ptr(),
+                *self._loop_args(tab, B),
+                self.mode, self.amp, int(raw is not None), key[0], key[1],
+                int(bool(skip)), dev.index, stream,
+            )
+        return outs + (llr,) if self.emit_llr else outs
+
+
+class LLRDecoder(_FusedBase):
+    """``llr_step(llrT, wT, done0) -> (err, ok, conv, norm, iters)``.
+
+    Phase 2 of two-phase dispatch: ``llrT`` f32 [n, B] channel LLRs in the
+    log(p0/p1) domain (as :class:`MCDecoder` emits them), ``wT`` f32 [n, B]
+    transmitted bits in the same lane order, ``done0`` f32 [B] with 1.0
+    pre-marking a lane done: its LLRs are not read and its outputs are
+    placeholders (ok, conv -1, no errors). Outputs as for
+    :class:`MCDecoder`.
+    """
+
+    def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
+                 variant: str = "spa", *, alpha: float = 0.75,
+                 beta: float = 0.15, schedule: str = "layered",
+                 layer_groups=None,
+                 check_every: int = 1):
+        super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
+                         beta=beta, schedule=schedule,
+                         layer_groups=layer_groups, check_every=check_every)
+
+    def __call__(self, llrT, wT, done0):
+        if llrT.device.type == "cpu":
+            return self.plain(llrT, wT, done0)
+        if llrT.device.type != "cuda":
+            raise ValueError(f"no kernel for device {llrT.device}")
+        return self._launch(llrT, wT, done0)
+
+    def plain(self, llrT, wT, done0):
+        """The kernel's arithmetic in PyTorch, on any device."""
+        B = llrT.shape[1]
+        loop, _, _ = self._dev(llrT.device)
+        L = llrT.to(torch.float32).clone()
+        pre = done0 > 0.5
+        done, conv, iters = loop.run(L, pre)
+        err = torch.where(pre, 0, self._count_errors(L, wT)).to(torch.int32)
+        return (err, done, conv,
+                torch.zeros(B, dtype=torch.float32, device=llrT.device), iters)
+
+    def _launch(self, llrT, wT, done0):
+        dev = llrT.device
+        n, B = self.qc.n, llrT.shape[1]
+        self._check("llrT", llrT, torch.float32, (n, B), dev)
+        self._check("wT", wT, torch.float32, (n, B), dev)
+        self._check("done0", done0, torch.float32, (B,), dev)
+        _, _, tab = self._dev(dev)
+        outs = self._outputs(B, dev)
+        if B == 0:  # nothing to launch
+            return outs
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            LLR_KERNEL(
+                llrT.data_ptr(), wT.data_ptr(), done0.data_ptr(),
+                *(o.data_ptr() for o in outs), *self._loop_args(tab, B),
+                dev.index, stream,
+            )
+        return outs

@@ -1,0 +1,74 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points default to the card."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import ldpc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ldpc_tpu_torch.__path__,
+                                               "ldpc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ldpc_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 17  # every module of the port was imported
+
+
+def test_entry_points_default_to_the_card():
+    from ldpc_tpu_torch.ops.channel import ChannelParams
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+    from ldpc_tpu_torch.utils.device import resolve_device
+
+    code = load_code("builtin:wimax_576_0.5.alist.txt")
+    opts = SimOptions(matrix=code.name, iterations=4, fidelity="exact",
+                      batch=128, schedule="layered", two_phase="off")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        assert ChannelParams().consts().is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChannelParams().consts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PointExecutor(code, opts)
+    assert PointExecutor(code, opts, device="cpu").device.type == "cpu"
+
+
+def test_cuda_tensor_never_takes_the_plain_version():
+    """A wrapper raises for a device it has no kernel for; on the CPU it
+    runs the plain version (there is no fallback in between)."""
+    from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    code = load_code("builtin:wimax_576_0.5.alist.txt")
+    dec = LLRDecoder(code.qc, code.standard_encode_spec.info_pos("orig"), 2,
+                     "minsum")
+    x = torch.zeros((code.n, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dec(x, x, torch.zeros(4, device="meta"))
+    out = dec(torch.ones((code.n, 4)), torch.zeros((code.n, 4)),
+              torch.zeros(4))
+    assert out[1].all()  # all-positive LLRs are the all-zero codeword
