@@ -50,10 +50,35 @@ Phases:
    over 3.35 TB/s). The ``kernels`` line carries the single pass for
    ``mc_decoder``; its ``max_abs_err`` is the largest error of phases 3
    (main shapes) and 5.
-6. Only with ``--fer-batches N``: the FER at the headline point, single
+6. K3 ``qc_decoder`` (the standalone QC decoder of the unfused path)
+   against its plain version at wimax 1152, 4096 frames, on channel LLRs
+   made on the card: flooding SPA-16 with the normalized-LLR metric on and
+   off, layered SPA-12 serial, layered SPA-12 paired with a check every two
+   sweeps, flooding normalized min-sum; decisions, ok, conv, norm and the
+   block trip counts must be equal bit for bit. Then ``QC_COVERAGE`` at 512
+   frames: CCSDS n32 flooding and layered (multi-diagonal), row degrees 15,
+   20 and 22, ``skip=1``, the block plans of n=4608 and n=9216 under
+   flooding, and 16-QAM mode-2 LLRs as input.
+7. The unfused path through ``run_simulation``: the burst-interleaver
+   configuration at wimax 1152 (16-QAM, mode-2 jamming p 0.15 at -3 dB,
+   random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
+   batches of 4096; its JSON written and read back; K3 must launch once per
+   batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
+   BPSK, at 2.0 dB over 64 batches.
+8. FER against the JAX package's TPU records, as statistics of the code:
+   the flooding run of phase 7 against ``examples/decoder_variants/
+   sumproduct.json`` (225 / 8,192 at 2.0 dB), and the burst configuration at
+   wimax 576, 6.0 dB, 16 batches, against ``examples/burst_interleaver/
+   results.json`` (``random``: 801 / 14,336); each within 5 combined
+   standard errors.
+9. K3 timed with CUDA events at 4096 frames (flooding SPA-16 at the phase-7
+   flooding point, layered SPA-12 at the headline's 5.5 dB point) beside its
+   plain version and its bound (the larger of the data's operations over 67
+   TFLOP/s f32 and the LLRs in plus the decisions out over 3.35 TB/s).
+10. Only with ``--fer-batches N``: the FER at the headline point, single
    pass, paired and serial, with the in-kernel Philox noise and with words
    drawn by ``torch.randint``, N batches of 4096 frames each.
-7. One ``kernels`` JSON line, then the device line as the last line.
+11. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -75,6 +100,15 @@ PHASE1, ITERS, CHECK_EVERY = 6, 12, 2
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 SOURCE = "ldpc_tpu_torch/csrc/mc_decoder.cu"
+W1152 = "builtin:wimax_1152_0.5.alist.txt"
+QC_BATCHES = 16  # batches of 4096 per point of the unfused runs
+FLOOD_BATCHES = 64
+# the JAX package's TPU records (statistics of the code, not speeds)
+REF_FLOOD = (225, 8192)  # examples/decoder_variants/sumproduct.json, 2.0 dB
+REF_BURST = (801, 14336)  # examples/burst_interleaver/results.json, random, 6.0 dB
+BURST = dict(modulation=16, mode=2, p=0.15, interference_snr=-3.0,
+             interleaver="random", schedule="layered", decoder="sumproduct",
+             iterations=12)
 
 
 def fail(msg: str) -> None:
@@ -356,6 +390,261 @@ def phase_fer(batches: int) -> None:
                 f"frame_errors={errors} FER={fer:.6f} se={se:.6f}")
 
 
+# ------------------------------------------------------------------- K3 ----
+
+def channel_llrs(code, B: int, snr_db: float, seed: int, dev, **channel):
+    """Channel LLRs (LLR > 0 <=> bit 1) of ``B`` random codewords of
+    ``code`` through the port's channel on the card, f32 [B, n]; BPSK and
+    mode 1 unless ``channel`` says otherwise (``mode``, ``modulation``, and
+    the partial-band ``p`` / ``interference_snr_db``)."""
+    import torch
+
+    from ldpc_tpu_torch.ops.channel import ChannelParams, make_channel
+    from ldpc_tpu_torch.ops.encode import make_encoder, random_info_bits
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = random_info_bits(gen, B, code.k)
+    w = make_encoder(code.standard_encode_spec, "orig", dev)(u)
+    params = ChannelParams(speed=code.rate, snr_db=snr_db, noise_model="exact",
+                           **channel)
+    return make_channel(params, n=code.n, device=dev)(gen, w).contiguous()
+
+
+def hold_qc(tag: str, dec, llr, skip: int = 0):
+    """K3 against its plain version on the same LLRs: decisions, ok, conv,
+    norm and the per-codeword block trip counts equal bit for bit (every
+    variant). Returns the kernel's outputs and the largest error."""
+    import torch
+
+    kern = dec.outputs(llr, skip)
+    sync()
+    plain = dec.plain_outputs(llr, skip)
+    names = ("est", "ok", "conv", "norm", "iters")
+    gaps = {}
+    for name, a, b in zip(names, kern, plain):
+        gaps[name] = float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) \
+            if a.numel() else 0.0
+    same = (kern[0] == plain[0]).all(dim=1) & (kern[1] == plain[1]) \
+        & (kern[2] == plain[2]) & (kern[3] == plain[3]) & (kern[4] == plain[4])
+    frac = float(same.float().mean())
+    log(f"  {tag}: frames equal {frac:.6f}, max |diff| "
+        + " ".join(f"{k} {v:g}" for k, v in gaps.items())
+        + f", converged {float(kern[1].float().mean()):.4f}, "
+          f"trips max {int(kern[4].max())}")
+    if frac != 1.0:
+        bad = (~same).nonzero().flatten()[:10].tolist()
+        fail(f"{tag} differs from its plain version at frames {bad}")
+    return kern, max(gaps.values())
+
+
+# K3 configurations beyond the main cases, at 512 frames: (code, schedule,
+# layer order, variant, iterations, check every, track_norm, Eb/N0 dB,
+# channel, skip)
+QC_COVERAGE = [
+    # multi-diagonal (two circulants in one base column): both schedules
+    ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "flooding", "serial",
+     "normalized_minsum", 12, 1, True, 3.0, {}, 0),
+    ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "layered", "serial", "spa", 10,
+     1, True, 3.0, {}, 0),
+    # row degree 15 (the 16 instantiation), 20 and 22 (the 32 one)
+    ("builtin:wimax_1152_0.75A.alist.txt", "flooding", "serial",
+     "offset_minsum", 16, 1, True, 3.0, {}, 0),
+    ("builtin:wimax_1152_0.83.alist.txt", "layered", "serial", "minsum", 12,
+     3, False, 3.5, {}, 0),
+    ("builtin:wifi_648_r083.alist.txt", "flooding", "serial", "spa", 16, 2,
+     False, 4.0, {}, 0),
+    # every lane pre-marked done
+    (W1152, "flooding", "serial", "spa", 16, 1, True, 2.0, {}, 1),
+    # 2 and 1 codewords per block under flooding (Z = 192, 384)
+    ("examples/big_code/wimax_like_n4608_z192.alist.txt", "flooding",
+     "serial", "minsum", 16, 1, True, 2.0, {}, 0),
+    ("examples/big_code/wimax_like_n9216_z384.alist.txt", "flooding",
+     "serial", "spa", 16, 2, False, 1.5, {}, 0),
+    # 16-QAM mode-2 LLRs as input
+    (W1152, "layered", "paired", "spa", 12, 2, False, 5.5,
+     dict(modulation=16, mode=2, p=0.15, interference_snr_db=-3.0), 0),
+]
+
+
+def qc_decoder_for(code, schedule, order, variant, iters, ce, norm):
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+    from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
+
+    groups = paired_layer_groups(code.qc) if order == "paired" else None
+    return QCDecoder(code.qc, code.standard_encode_spec.info_pos("orig"),
+                     iters, variant, schedule=schedule, track_norm=norm,
+                     layer_groups=groups, check_every=ce)
+
+
+def phase_qc_compare(dev):
+    """Phase 6: K3 against its plain version, main cases then QC_COVERAGE.
+    Returns (largest error, {case: (decoder, llr, kernel outputs)}) for the
+    timing phase."""
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    code = load_code(W1152)
+    bpsk = channel_llrs(code, BATCH, SNR_DB, 11, dev)
+    qam = channel_llrs(code, BATCH, 5.5, 12, dev, **{
+        k: BURST[k] for k in ("modulation", "mode", "p")},
+        interference_snr_db=BURST["interference_snr"])
+    worst, kept = 0.0, {}
+    log(f"compare qc_decoder (wimax 1152, B={BATCH}):")
+    for tag, sched, order, variant, iters, ce, norm, llr in (
+        ("flooding spa-16 norm", "flooding", "serial", "spa", 16, 1, True, bpsk),
+        ("flooding spa-16", "flooding", "serial", "spa", 16, 1, False, bpsk),
+        ("layered spa-12 serial (16-QAM)", "layered", "serial", "spa", 12, 1,
+         False, qam),
+        ("layered spa-12 paired ce2", "layered", "paired", "spa", 12, 2, False,
+         bpsk),
+        ("flooding nms-16 norm", "flooding", "serial", "normalized_minsum", 16,
+         1, True, bpsk),
+    ):
+        dec = qc_decoder_for(code, sched, order, variant, iters, ce, norm)
+        out, e = hold_qc(f"{tag} (lanes {dec.kernel_lanes}, rows "
+                         f"{dec.rows_per_step})", dec, llr)
+        worst = max(worst, e)
+        kept[tag] = (dec, llr, out)
+    log(f"compare qc_decoder (other configurations, B={COVER_BATCH}):")
+    for (name, sched, order, variant, iters, ce, norm, snr, ch,
+         skip) in QC_COVERAGE:
+        c = load_code(name if name.startswith("builtin:") else str(ROOT / name))
+        dec = qc_decoder_for(c, sched, order, variant, iters, ce, norm)
+        llr = channel_llrs(c, COVER_BATCH, snr, 13, dev, **ch)
+        tag = (f"{c.name} {sched} {order} {variant}-{iters} ce{ce} norm {norm} "
+               f"{snr} dB {ch or 'bpsk'} skip {skip} (lanes {dec.kernel_lanes})")
+        worst = max(worst, hold_qc(tag, dec, llr, skip)[1])
+    return worst, kept
+
+
+def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, float]:
+    """|FER - reference FER| and 5 combined standard errors of the two."""
+    p1, p2 = errors / frames, ref[0] / ref[1]
+    se = math.sqrt(p1 * (1 - p1) / frames + p2 * (1 - p2) / ref[1])
+    return abs(p1 - p2), 5 * se
+
+
+def phase_unfused(dev):
+    """Phases 7 and 8: the unfused path through ``run_simulation``.
+    Returns K3's launches on the headline run and its per-batch count."""
+    import torch
+
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.results import SimulationResult
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    code = load_code(W1152)
+
+    def sweep(tag, kind, batches, initial, end, step, **kw):
+        """``run_simulation`` over the points, its own per-point lines
+        (FER, BER, codewords/s and info bits/s) in the log."""
+        opts = SimOptions(matrix=W1152, blocks=batches * BATCH, ber=True,
+                          fer=True, fidelity="exact", speed=0.5, batch=BATCH,
+                          seed=7, initial_snr=initial, end_snr=end,
+                          step_snr=step,
+                          output_json=str(out_dir / f"{tag}.json"), **kw)
+        used = PointExecutor(code, opts).kernel_used
+        log(f"{tag}: kernel_used {used}")
+        if used != kind:
+            fail(f"{tag} took {used}, expected {kind}")
+        # warm: one batch of the same configuration (allocations, handles)
+        run_simulation(SimOptions(**{**opts.__dict__, "blocks": BATCH,
+                                     "end_snr": initial, "output_json": None,
+                                     "quiet": True}), code)
+        torch.cuda.synchronize()
+        for k in (QC_KERNEL, MC_KERNEL, LLR_KERNEL):
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = run_simulation(opts, code)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"qc_decoder": QC_KERNEL.launches,
+                    "mc_decoder": MC_KERNEL.launches,
+                    "llr_decoder": LLR_KERNEL.launches}
+        back = SimulationResult.from_json(str(out_dir / f"{tag}.json"))
+        if [vars(p) for p in back.snr_points] != [vars(p) for p in res.snr_points]:
+            fail(f"{tag}: the JSON read back differs from the result")
+        n_batches = batches * len(res.snr_points)
+        for p in res.snr_points:
+            log(f"{tag} {p.snr_db:.2f} dB: FER {p.fer:.6f} "
+                f"({p.failed_blocks}/{p.total_blocks}), BER {p.ber:.3e}, "
+                f"avg conv {p.avg_convergence_iterations:.3f}")
+        frames = sum(p.total_blocks for p in res.snr_points)
+        log(f"{tag}: {frames} frames in {elapsed:.4f} s = "
+            f"{frames / elapsed:.6g} codewords/s, "
+            f"{frames * code.k / elapsed:.6g} info bits/s; device "
+            f"{res.config.device}; launches {launches} over {n_batches} "
+            "batches")
+        if launches["qc_decoder"] != n_batches:
+            fail(f"{tag}: qc_decoder launched {launches['qc_decoder']} times "
+                 f"for {n_batches} batches")
+        if launches["mc_decoder"] or launches["llr_decoder"]:
+            fail(f"{tag}: a fused kernel launched on the unfused path")
+        return res, launches["qc_decoder"], n_batches
+
+    # the headline: the burst-interleaver study's configuration at 1152
+    head, head_launches, head_batches = sweep(
+        "headline", "cuda+layered", QC_BATCHES, 5.0, 6.0, 0.5, **BURST)
+    if len(head.snr_points) != 3:
+        fail("the headline sweep did not run 3 points")
+    fer6 = head.snr_points[-1].fer
+    if not 0.0 < fer6 < head.snr_points[0].fer:
+        fail(f"headline FER does not fall with SNR: "
+             f"{[p.fer for p in head.snr_points]}")
+
+    # the CLI's default schedule: flooding SPA-16, BPSK, fused 'auto'
+    flood, _, _ = sweep("flooding", "cuda", FLOOD_BATCHES, SNR_DB, SNR_DB,
+                        1.0, schedule="flooding", decoder="sumproduct",
+                        iterations=16)
+    pt = flood.snr_points[0]
+    gap, bar = five_se(pt.failed_blocks, pt.total_blocks, REF_FLOOD)
+    log(f"fer check flooding spa-16 2.0 dB: {pt.failed_blocks}/"
+        f"{pt.total_blocks} = {pt.fer:.6f} vs TPU {REF_FLOOD[0]}/{REF_FLOOD[1]}"
+        f" = {REF_FLOOD[0] / REF_FLOOD[1]:.6f}: |diff| {gap:.6f}, 5 se {bar:.6f}")
+    if gap > bar:
+        fail("flooding FER outside 5 combined standard errors of the TPU's")
+
+    # the burst configuration at wimax 576, the study's own code
+    w576 = load_code("builtin:wimax_576_0.5.alist.txt")
+    opts = SimOptions(matrix=w576.name, blocks=QC_BATCHES * BATCH, fer=True,
+                      fidelity="exact", speed=0.5, batch=BATCH, seed=9,
+                      initial_snr=6.0, end_snr=6.0, quiet=True, **BURST)
+    pt = run_simulation(opts, w576).snr_points[0]
+    gap, bar = five_se(pt.failed_blocks, pt.total_blocks, REF_BURST)
+    log(f"fer check burst wimax 576 6.0 dB: {pt.failed_blocks}/"
+        f"{pt.total_blocks} = {pt.fer:.6f} vs TPU {REF_BURST[0]}/{REF_BURST[1]}"
+        f" = {REF_BURST[0] / REF_BURST[1]:.6f}: |diff| {gap:.6f}, 5 se {bar:.6f}")
+    if gap > bar:
+        fail("burst FER outside 5 combined standard errors of the TPU's")
+    return head_launches, head_batches
+
+
+def phase_qc_timing(kept):
+    """Phase 9: K3 timed at 4096 frames beside its plain version and its
+    bound. Returns {case: (ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+
+    out = {}
+    for tag, variant_iters in (("flooding spa-16", 16),
+                               ("layered spa-12 serial (16-QAM)", 12)):
+        dec, llr, o = kept[tag]
+        qc = dec.qc
+        B, n = llr.shape
+        sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), variant_iters)
+        ops = decode_ops(qc, dec.variant, sw, sw // dec.check_every)
+        bound, by = bound_ms(ops, 4 * n * B + n * B + 13 * B)
+        ms = time_ms(lambda: dec.outputs(llr), reps=20)
+        plain = time_ms(lambda: dec.plain_outputs(llr), reps=2, warm=1)
+        log(f"timing qc_decoder {tag} (B={B}): {ms:.4f} ms (plain {plain:.3f} "
+            f"ms, bound {bound:.5f} ms by {by}, {int(np.sum(sw))} lane sweeps, "
+            f"lanes per block {dec.kernel_lanes})")
+        out[tag] = (ms, plain, bound, by)
+    return out
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -535,6 +824,16 @@ def main(argv=None) -> int:
         f"{t_k2:.4f} ms (plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, "
         f"{int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
 
+    # ---- 6-9. K3 and the unfused path ----
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+
+    QC_KERNEL.launches = 0
+    qc_err, kept = phase_qc_compare(dev)
+    qc_launches, qc_batches = phase_unfused(dev)
+    qc_times = phase_qc_timing(kept)
+    log(f"qc_decoder launches per batch on the headline run: "
+        f"{qc_launches / qc_batches:g}")
+
     if args.fer_batches:
         phase_fer(args.fer_batches)
 
@@ -548,6 +847,14 @@ def main(argv=None) -> int:
          "replaces": "ldpc_tpu/ops/mc_pallas.py:603",
          "launches": launches["llr_decoder"], "max_abs_err": errs["llr_decoder"],
          "ms": t_k2, "plain_ms": t_p2, "bound_ms": b2, "bound_by": by2,
+         "library_ms": None},
+        {"name": "qc_decoder", "route": "cuda", "source": SOURCE,
+         "replaces": "ldpc_tpu/ops/spa_pallas.py:710",
+         "launches": qc_launches, "max_abs_err": qc_err,
+         "ms": qc_times["layered spa-12 serial (16-QAM)"][0],
+         "plain_ms": qc_times["layered spa-12 serial (16-QAM)"][1],
+         "bound_ms": qc_times["layered spa-12 serial (16-QAM)"][2],
+         "bound_by": qc_times["layered spa-12 serial (16-QAM)"][3],
          "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

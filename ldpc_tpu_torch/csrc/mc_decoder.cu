@@ -1,35 +1,46 @@
-// Fused Monte-Carlo LDPC kernels for Hopper (sm_90a), plain C interface.
+// QC LDPC decode kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of the JAX package and their shared body:
+// Replaces three Pallas TPU kernels of the JAX package and their shared body:
 //   * ldpc_tpu/ops/mc_pallas.py  make_mc_decoder  (body :295-376) -> mc_decoder_kernel
 //     modulation, noise (injected words or Philox), Box-Muller with a 48-bit
 //     radial uniform, channel LLRs, the QC decode loop, info-bit error counts,
 //     optionally the channel LLRs out for phase 2;
 //   * ldpc_tpu/ops/mc_pallas.py  make_llr_decoder (body :561-601) -> llr_decoder_kernel
 //     the same decode and counts from given LLRs with a per-lane pre-done mask;
+//   * ldpc_tpu/ops/spa_pallas.py make_qc_decoder  (body :686-708) -> qc_decoder_kernel
+//     the standalone decode of given channel LLRs (the unfused path): layered
+//     or flooding, hard decisions, ok, conv, the normalized-LLR flip metric;
 //   * ldpc_tpu/ops/spa_pallas.py make_decode_loop / make_check_update
-//     (:126-574) -> decode_block / check_update, one __device__ loop for both.
+//     (:126-574) -> decode_block / flood_sweep / check_update, one __device__
+//     loop for all three.
 //
-// What bounds them: a codeword's decode is a chain of dependent layer steps,
-// each a gather along Z, a leave-one-out combine (tanh/log or min/sign) and a
-// scatter, with a block barrier between steps. Device-memory traffic is small
-// (code bits in, five counters out, LLRs when emitted), so of the two bounds
-// operations bind; in practice the latency of the layer chain does, and the
-// kernels run far above their operations bound (PERF.md has both times).
+// What bounds them: a codeword's decode is a chain of dependent steps (a
+// layer of the layered schedule, or the check then the posterior phase of a
+// flooding sweep), each a gather along Z, a leave-one-out combine (tanh/log
+// or min/sign) and a scatter, with a block barrier between steps. Device-
+// memory traffic is small (code bits or LLRs in; counters, decisions or
+// LLRs out), so of the two bounds operations bind; in practice the latency
+// of the step chain does, and the kernels run far above their operations
+// bound (PERF.md has both times).
 //
 // Design: a block holds `lpb` codewords. The posteriors L [n][lpb] and the
 // extrinsics E [edge slots * Z][lpb] of its codewords live in shared memory
-// for the whole decode, so an iteration touches no device memory. Thread
-// (r, z, lane) owns check row z of the r-th row of every layer group for one
+// for the whole decode, so an iteration touches no device memory (flooding
+// also keeps the channel LLRs X there: every sweep restarts its posteriors
+// from them; the flip metric's previous posteriors, read once per check,
+// stay in device memory). Thread (r, z, lane) owns check row z of the r-th
+// row of every layer group (flooding: of base rows r, r+R, ...) for one
 // codeword: a roll along Z is an indexed shared-memory read, and in a
 // single-diagonal layer every posterior is read and written by exactly one
 // thread, so a layer needs no atomics; the rows of a paired group run in the
 // same step. Multi-diagonal layers stage their extrinsic deltas and apply
 // them per position after a barrier (the additive update of the reference).
-// The block loops until all its codewords are done or the budget is spent;
-// `iters` is that trip count. Every op is per codeword, so the other outputs
-// do not depend on lpb. Built with -fmad=false so each op rounds as the plain
-// PyTorch version (ldpc_tpu_torch/ops/decode_loop.py, mc_kernels.py) does.
+// A flooding sweep writes only E in its check phase and only L in its
+// posterior phase, with a barrier between. The block loops until all its
+// codewords are done or the budget is spent; `iters` is that trip count.
+// Every op is per codeword, so the other outputs do not depend on lpb. Built
+// with -fmad=false so each op rounds as the plain PyTorch version
+// (ldpc_tpu_torch/ops/decode_loop.py, mc_kernels.py, qc_kernels.py) does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +56,7 @@ constexpr float HALF_U24 = 0x1p-25f;
 constexpr float U48 = 0x1p-48f;
 constexpr float HALF_U48 = 0x1p-49f;
 constexpr float ONE_MINUS_U24 = 0x1.fffffep-1f;
+constexpr float LLR_WINDOW = 7.0f;  // normalized-LLR confidence window
 
 struct Loop {
   const int* row_off;     // [mb + 1] first flattened slot of each base row
@@ -53,15 +65,21 @@ struct Loop {
   const int* groups;      // [ngroups * R] rows of each layer step, -1 = none
   const int* grp_dup;     // [ngroups] the step holds a multi-diagonal row
   const int* row_dup;     // [mb] multi-diagonal row
+  const int* col_off;     // flooding: [nb + 1] first column slot of each base column
+  const int* col_slot;    // flooding: [e_slots] flattened E slot, column order
+  const int* col_shift;   // flooding: [e_slots] circulant shift, column order
   const int* info_mask;   // [n] 1 at info-bit positions (device memory)
+  float* prior;           // track_norm: [n, B] previous posteriors (device memory)
   int n, Z, nb, mb, e_slots, ngroups, R, lpb, B;
   int max_it, check_every, variant;  // variant: 0 spa, 1 minsum, 2 nms, 3 oms
   float alpha, beta;
-  int has_dup;
+  int has_dup, flood, track_norm;
+  float kf;  // info positions the flip metric divides by (at least 1)
 };
 
 __host__ __device__ inline int table_len(const Loop& P) {
-  return (P.mb + 1) + 2 * P.e_slots + P.ngroups * P.R + P.ngroups + P.mb;
+  return (P.mb + 1) + 2 * P.e_slots + P.ngroups * P.R + P.ngroups + P.mb +
+         (P.flood ? (P.nb + 1) + 2 * P.e_slots : 0);
 }
 
 __shared__ int s_done[MAX_LPB];
@@ -69,6 +87,8 @@ __shared__ int s_unsat[MAX_LPB];
 __shared__ int s_conv[MAX_LPB];
 __shared__ int s_err[MAX_LPB];
 __shared__ int s_pre[MAX_LPB];  // lane pre-marked done: no load, no count
+__shared__ int s_flips[MAX_LPB];
+__shared__ float s_norm[MAX_LPB];
 
 // Copy the schedule tables into shared memory and point P at the copies.
 __device__ void stage_tables(Loop& P, const int* tab, int* stab) {
@@ -80,6 +100,9 @@ __device__ void stage_tables(Loop& P, const int* tab, int* stab) {
   P.groups = P.slot_shift + P.e_slots;
   P.grp_dup = P.groups + P.ngroups * P.R;
   P.row_dup = P.grp_dup + P.ngroups;
+  P.col_off = P.row_dup + P.mb;
+  P.col_slot = P.col_off + P.nb + 1;
+  P.col_shift = P.col_slot + P.e_slots;
   P.info_mask = tab + len;
 }
 
@@ -163,11 +186,53 @@ __device__ __forceinline__ int wrap(int x, int Z) {
   return x >= Z ? x - Z : (x < 0 ? x + Z : x);
 }
 
-// make_decode_loop (spa_pallas.py:176-574), layered schedule. L holds the
-// channel LLRs (log(p0/p1)) on entry and the final posteriors on exit;
-// s_done / s_conv hold each lane's state. Returns the block's trip count.
+// One flooding sweep (spa_pallas.py:453-471): every base row's check update
+// from roll(L) - E, written to E where the lane is active; after a barrier,
+// every posterior L[bj] = X[bj] + sum of roll(E[slot], -s) in column-slot
+// (edge) order.
 template <int DMAX>
-__device__ int decode_block(const Loop& P, float* L, float* E, float* D,
+__device__ void flood_sweep(const Loop& P, float* L, float* E, const float* X, int lane,
+                            int r, int z, bool active) {
+  const int lpb = P.lpb, Z = P.Z;
+  if (active) {
+    for (int bi = r; bi < P.mb; bi += P.R) {
+      const int off = P.row_off[bi], d = P.row_off[bi + 1] - off;
+      float m[DMAX], e[DMAX];
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) {
+        if (j < d) {
+          const int li = (P.slot_col[off + j] * Z + wrap(z + P.slot_shift[off + j], Z)) * lpb + lane;
+          m[j] = L[li] - E[((off + j) * Z + z) * lpb + lane];
+        }
+      }
+      check_update<DMAX>(m, e, d, P.variant, P.alpha, P.beta);
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) {
+        if (j < d) E[((off + j) * Z + z) * lpb + lane] = e[j];
+      }
+    }
+  }
+  __syncthreads();
+  if (active) {
+    for (int pos = r * Z + z; pos < P.n; pos += P.R * Z) {
+      const int col = pos / Z;
+      float acc = X[pos * lpb + lane];
+      for (int t = P.col_off[col]; t < P.col_off[col + 1]; ++t)
+        acc = acc + E[(P.col_slot[t] * Z + wrap(z - P.col_shift[t], Z)) * lpb + lane];
+      L[pos * lpb + lane] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// make_decode_loop (spa_pallas.py:176-574), layered or (FLOOD) flooding
+// schedule. L holds the channel LLRs (log(p0/p1)) on entry and the final
+// posteriors on exit (flooding reads the channel LLRs from X on every sweep);
+// s_done / s_conv (and s_norm when NORM and P.track_norm) hold each lane's
+// state. NORM compiles the flip metric in (the standalone decoder only, so
+// the fused kernels keep their registers). Returns the block's trip count.
+template <int DMAX, bool FLOOD, bool NORM>
+__device__ int decode_block(const Loop& P, float* L, float* E, float* D, const float* X,
                             int lane, int r, int z, bool valid) {
   const int lpb = P.lpb, Z = P.Z;
   for (int i = threadIdx.x; i < P.e_slots * Z * lpb; i += blockDim.x) E[i] = 0.0f;
@@ -180,6 +245,10 @@ __device__ int decode_block(const Loop& P, float* L, float* E, float* D,
     // `active` is fixed for the whole check window (spa_pallas.py:527-529)
     const bool active = valid && s_done[lane] == 0;
     for (int step = 0; step < P.check_every; ++step) {
+      if (FLOOD) {
+        flood_sweep<DMAX>(P, L, E, X, lane, r, z, active);
+        continue;
+      }
       for (int g = 0; g < P.ngroups; ++g) {
         const int bi = P.groups[g * P.R + r];
         const bool row_on = active && bi >= 0;
@@ -237,7 +306,10 @@ __device__ int decode_block(const Loop& P, float* L, float* E, float* D,
       }
     }
     // syndrome of the window's last sweep (exact rule: bit = L < 0)
-    if (threadIdx.x < lpb) s_unsat[threadIdx.x] = 0;
+    if (threadIdx.x < lpb) {
+      s_unsat[threadIdx.x] = 0;
+      if (NORM) s_flips[threadIdx.x] = 0;
+    }
     __syncthreads();
     bool unsat = false;
     if (active) {
@@ -250,12 +322,30 @@ __device__ int decode_block(const Loop& P, float* L, float* E, float* D,
       }
     }
     if (unsat) s_unsat[lane] = 1;
+    if (NORM && P.track_norm && active) {
+      // flips = sum over info bits of (|L| <= 7) & (prior * L < 0), counted
+      // as an integer; then prior = L (spa_pallas.py:437-446)
+      const size_t b = (size_t)blockIdx.x * lpb + lane;
+      int cnt = 0;
+      for (int pos = r * Z + z; pos < P.n; pos += P.R * Z) {
+        if (P.info_mask[pos]) {
+          const float l = L[pos * lpb + lane];
+          float* pr = P.prior + (size_t)pos * P.B + b;
+          cnt += (fabsf(l) <= LLR_WINDOW && *pr * l < 0.0f) ? 1 : 0;
+          *pr = l;
+        }
+      }
+      if (cnt) atomicAdd(&s_flips[lane], cnt);
+    }
     __syncthreads();
     if (threadIdx.x < lpb) {
       const int l = threadIdx.x;
-      if (s_done[l] == 0 && s_unsat[l] == 0) {
-        s_conv[l] = it + P.check_every - 1;  // the check iteration
-        s_done[l] = 1;
+      if (s_done[l] == 0) {
+        if (NORM && P.track_norm) s_norm[l] = (float)s_flips[l] / P.kf;
+        if (s_unsat[l] == 0) {
+          s_conv[l] = it + P.check_every - 1;  // the check iteration
+          s_done[l] = 1;
+        }
       }
     }
     it += P.check_every;
@@ -410,7 +500,7 @@ mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, c
     }
   }
   __syncthreads();
-  const int it = decode_block<DMAX>(P, L, E, D, lane, r, z, valid);
+  const int it = decode_block<DMAX, false, false>(P, L, E, D, nullptr, lane, r, z, valid);
   finish(P, L, w, lane, rz, b, valid, it, err, ok, conv, norm, iters);
 }
 
@@ -439,8 +529,53 @@ llr_decoder_kernel(Loop P, const int* tab, const float* llr, const float* w, con
     for (int pos = rz; pos < n; pos += P.R * Z) L[pos * lpb + lane] = llr[(size_t)pos * B + b];
   }
   __syncthreads();
-  const int it = decode_block<DMAX>(P, L, E, D, lane, r, z, valid);
+  const int it = decode_block<DMAX, false, false>(P, L, E, D, nullptr, lane, r, z, valid);
   finish(P, L, w, lane, rz, b, valid, it, err, ok, conv, norm, iters);
+}
+
+// spa_pallas.py:686-708: decode the channel LLRs ``llr`` [B, n] (LLR > 0 <=>
+// bit 1, negated on load into log(p0/p1)), then write the hard decisions
+// est [B, n] (1 <=> L < 0, frozen per lane at its convergence) and the
+// per-lane ok / conv / norm / iters. ``skip`` pre-marks every lane done.
+template <int DMAX, bool FLOOD>
+__global__ void __launch_bounds__(1024)
+qc_decoder_kernel(Loop P, const int* tab, const float* llr, int skip, unsigned char* est,
+                  unsigned char* ok, int* conv, float* norm, int* iters) {
+  extern __shared__ float smem[];
+  const int lpb = P.lpb, Z = P.Z, n = P.n;
+  float* L = smem;
+  float* E = L + n * lpb;
+  float* D = E + P.e_slots * Z * lpb;
+  float* X = D + (P.has_dup ? P.R * DMAX * Z * lpb : 0);
+  stage_tables(P, tab, reinterpret_cast<int*>(X + (FLOOD ? n * lpb : 0)));
+  const int tid = threadIdx.x, lane = tid % lpb, rz = tid / lpb, r = rz / Z, z = rz % Z;
+  const int b = blockIdx.x * lpb + lane;
+  const bool valid = b < P.B;
+  if (tid < lpb) {
+    s_done[tid] = (skip || !valid) ? 1 : 0;
+    s_conv[tid] = -1;
+    s_norm[tid] = 0.0f;
+  }
+  if (valid) {
+    for (int pos = rz; pos < n; pos += P.R * Z) {
+      const float v = -llr[(size_t)b * n + pos];
+      L[pos * lpb + lane] = v;
+      if (FLOOD) X[pos * lpb + lane] = v;
+      if (P.track_norm && P.info_mask[pos]) P.prior[(size_t)pos * P.B + b] = v;
+    }
+  }
+  __syncthreads();
+  const int it = decode_block<DMAX, FLOOD, true>(P, L, E, D, X, lane, r, z, valid);
+  if (valid) {
+    for (int pos = rz; pos < n; pos += P.R * Z)
+      est[(size_t)b * n + pos] = L[pos * lpb + lane] < 0.0f ? 1 : 0;
+  }
+  if (tid < lpb && valid) {
+    ok[b] = s_done[lane] ? 1 : 0;
+    conv[b] = s_conv[lane];
+    norm[b] = s_norm[lane];
+    iters[b] = it;
+  }
 }
 
 Loop make_loop(const int* tab, int n, int Z, int nb, int mb, int e_slots, int ngroups, int R,
@@ -463,12 +598,14 @@ Loop make_loop(const int* tab, int n, int Z, int nb, int mb, int e_slots, int ng
   P.alpha = alpha;
   P.beta = beta;
   P.has_dup = has_dup;
+  P.kf = 1.0f;
   return P;
 }
 
 size_t smem_bytes(const Loop& P, int dmax) {
   size_t floats = (size_t)P.lpb * (P.n + (size_t)P.e_slots * P.Z +
-                                   (P.has_dup ? (size_t)P.R * dmax * P.Z : 0));
+                                   (P.has_dup ? (size_t)P.R * dmax * P.Z : 0) +
+                                   (P.flood ? P.n : 0));
   return 4 * (floats + table_len(P));
 }
 
@@ -499,6 +636,20 @@ cudaError_t launch_llr(const Loop& P, const int* tab, const float* llr, const fl
   const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(P.lpb * P.R * P.Z);
   llr_decoder_kernel<DMAX><<<grid, block, smem, stream>>>(P, tab, llr, w, done0, err, ok, conv,
                                                           norm, iters);
+  return cudaGetLastError();
+}
+
+template <int DMAX, bool FLOOD>
+cudaError_t launch_qc(const Loop& P, const int* tab, const float* llr, int skip,
+                      unsigned char* est, unsigned char* ok, int* conv, float* norm, int* iters,
+                      cudaStream_t stream) {
+  const size_t smem = smem_bytes(P, DMAX);
+  cudaError_t e = cudaFuncSetAttribute(qc_decoder_kernel<DMAX, FLOOD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(P.lpb * P.R * P.Z);
+  qc_decoder_kernel<DMAX, FLOOD><<<grid, block, smem, stream>>>(P, tab, llr, skip, est, ok, conv,
+                                                                norm, iters);
   return cudaGetLastError();
 }
 
@@ -564,4 +715,39 @@ extern "C" int llr_decoder_launch(const float* llr, const float* w, const float*
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int qc_decoder_launch(const float* llr, float* prior, unsigned char* est,
+                                 unsigned char* ok, int* conv, float* norm, int* iters,
+                                 const int* tab, int n, int Z, int nb, int mb, int e_slots,
+                                 int ngroups, int R, int lpb, int B, int max_it, int check_every,
+                                 int variant, float alpha, float beta, int dmax, int has_dup,
+                                 int flood, int track_norm, int k, int skip, int device,
+                                 void* stream) {
+  if (bad_shape(lpb, R, Z, B) || (track_norm && prior == nullptr) ||
+      (flood && (has_dup || ngroups))) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0) return cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  Loop P = make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, lpb, B, max_it, check_every, variant,
+                     alpha, beta, has_dup);
+  P.flood = flood;
+  P.track_norm = track_norm;
+  P.prior = prior;
+  P.kf = (float)(k > 1 ? k : 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QC_CASE(D)                                                                    \
+  case D:                                                                             \
+    return flood ? launch_qc<D, true>(P, tab, llr, skip, est, ok, conv, norm, iters, s) \
+                 : launch_qc<D, false>(P, tab, llr, skip, est, ok, conv, norm, iters, s);
+  switch (dmax) {
+    QC_CASE(8)
+    QC_CASE(16)
+    QC_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef QC_CASE
 }

@@ -1,21 +1,24 @@
-"""Plain PyTorch version of the QC layered decode loop.
+"""Plain PyTorch version of the QC decode loop.
 
 Counterpart of ``ldpc_tpu/ops/spa_pallas.py:59-574`` (``make_check_update``
-and ``make_decode_loop``, the body shared by the fused Monte-Carlo kernels).
-It repeats the CUDA decode loop's arithmetic in the same op order
-(csrc/mc_decoder.cu, ``decode_block``) on ``[n, B]`` tensors, rows
-``bj * Z + z``, codewords on the minor axis. The CPU tests hold it against
-the JAX package; on the card ``chip_smoke.py`` holds the kernels against it.
-Nothing on the main path calls it when a card is present.
+and ``make_decode_loop``, the body shared by the fused Monte-Carlo kernels
+and the standalone QC decoder). It repeats the CUDA decode loop's arithmetic
+in the same op order (csrc/mc_decoder.cu, ``decode_block`` and
+``flood_sweep``) on ``[n, B]`` tensors, rows ``bj * Z + z``, codewords on the
+minor axis. The CPU tests hold it against the JAX package; on the card
+``chip_smoke.py`` holds the kernels against it. Nothing on the main path
+calls it when a card is present.
 
 What it covers, as the kernels do: the layered (serial-C) schedule over base
-rows in the flattened order of ``layer_groups``; overwrite updates for
+rows in the flattened order of ``layer_groups``, with overwrite updates for
 single-diagonal layers and the additive update ``L += roll(E_new - E_old)``
-for multi-diagonal ones (CCSDS); SPA and the min-sum family with a scalar
-alpha / beta; a syndrome check every ``check_every`` sweeps with the window's
-``active`` set fixed; a per-lane pre-done mask. Still to be ported
-(ROADMAP.md): the flooding schedule, the normalized-LLR metric, int8
-extrinsic storage and per-iteration alpha schedules.
+for multi-diagonal ones (CCSDS); the flooding schedule (every check row from
+``roll(L) - E``, then every posterior ``llr + sum roll(E, -s)`` in column-slot
+order); SPA and the min-sum family with a scalar alpha / beta; a syndrome
+check every ``check_every`` sweeps with the window's ``active`` set fixed; a
+per-lane pre-done mask; the normalized-LLR flip metric (``track_norm``).
+Still to be ported (ROADMAP.md): int8 extrinsic storage and per-iteration
+alpha schedules.
 
 Every op is per lane, so a lane's trajectory does not depend on the others.
 Only ``iters`` does: the kernel runs a block of ``lanes`` codewords until all
@@ -31,7 +34,12 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.models.qc import QCLayout
-from ldpc_tpu_torch.ops.spa import PROD_CLIP_F32, TANH_IN_CLIP, exclusive_combine
+from ldpc_tpu_torch.ops.spa import (
+    LLR_WINDOW,
+    PROD_CLIP_F32,
+    TANH_IN_CLIP,
+    exclusive_combine,
+)
 
 VARIANTS = ("spa", "minsum", "normalized_minsum", "offset_minsum")
 
@@ -80,6 +88,22 @@ class QCTables:
     @property
     def order(self) -> list[int]:
         return [bi for g in self.groups for bi in g]
+
+    def column_slots(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Flooding's posterior tables: ``col_off`` [nb + 1] (first entry of
+        each base column), ``col_slot`` / ``col_shift`` [e_slots] (flattened
+        E slot and shift of each entry), in ``qc.col_slots()`` (edge) order,
+        the order the posterior sum runs in."""
+        qc = self.qc
+        col_off = np.zeros(qc.nb + 1, np.int32)
+        col_slot, col_shift = [], []
+        for bj, entries in enumerate(qc.col_slots()):
+            col_off[bj + 1] = col_off[bj] + len(entries)
+            for bi, slot, s in entries:
+                col_slot.append(int(self.row_off[bi]) + slot)
+                col_shift.append(s % qc.Z)
+        return (col_off, np.asarray(col_slot, np.int32),
+                np.asarray(col_shift, np.int32))
 
 
 def build_tables(qc: QCLayout, layer_groups=None) -> QCTables:
@@ -155,18 +179,22 @@ def check_update(msgs: torch.Tensor, variant: str, alpha: float,
 
 
 class DecodeLoop:
-    """The plain layered decode loop of one code on one device.
+    """The plain decode loop of one code on one device.
 
-    ``run(L, done0)`` decodes in place: ``L`` f32 [n, B] holds the channel
+    ``decode(L, done0)`` decodes in place: ``L`` f32 [n, B] holds the channel
     LLRs in the log(p0/p1) domain on entry and the final posteriors (frozen
-    at each lane's convergence) on exit. Returns ``(done, conv, iters)``:
-    bool / int32 / int32 [B].
+    at each lane's convergence) on exit. Returns ``(done, conv, iters,
+    norm)``: bool / int32 / int32 / f32 [B]; ``norm`` is zeros unless
+    ``track_norm`` (then ``info_pos`` names the info positions the flip
+    metric counts). ``run`` returns the first three.
     """
 
     def __init__(self, tables: QCTables, max_iterations: int, variant: str,
                  *, alpha: float = 0.75, beta: float = 0.15,
                  check_every: int = 1, lanes: int = 128,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu",
+                 schedule: str = "layered", track_norm: bool = False,
+                 info_pos=None):
         if check_every < 1 or max_iterations % check_every:
             raise ValueError(
                 f"check_every={check_every} must divide "
@@ -176,6 +204,15 @@ class DecodeLoop:
             raise NotImplementedError(
                 "per-iteration alpha schedules are not ported yet (ROADMAP.md)"
             )
+        if schedule not in ("layered", "flooding"):
+            raise ValueError(f"Unknown schedule: {schedule!r}")
+        if track_norm and check_every > 1:
+            raise ValueError(
+                "check_every > 1 requires track_norm=False: the "
+                "normalized-LLR flip metric is defined per iteration"
+            )
+        if track_norm and info_pos is None:
+            raise ValueError("track_norm needs the info positions")
         self.tables = tables
         self.max_iterations = int(max_iterations)
         self.variant = normalize_variant(variant)
@@ -183,9 +220,15 @@ class DecodeLoop:
         self.beta = float(beta)
         self.check_every = int(check_every)
         self.lanes = int(lanes)
+        self.flooding = schedule == "flooding"
+        self.track_norm = bool(track_norm)
         qc = tables.qc
         Z = qc.Z
         z = np.arange(Z)
+
+        def as_long(x):
+            return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
         # per row: L rows read by its slots (bj * Z + (z + s) % Z), slot-major
         self._rows = []
         for bi in range(qc.mb):
@@ -194,17 +237,56 @@ class DecodeLoop:
                 tables.slot_col[j] * Z + (z + tables.slot_shift[j]) % Z
                 for j in range(lo, hi)
             ]) if hi > lo else np.zeros(0, np.int64)
-            self._rows.append((lo, hi, bool(tables.row_dup[bi]),
-                               torch.as_tensor(idx, dtype=torch.long,
-                                               device=device)))
+            self._rows.append((lo, hi, bool(tables.row_dup[bi]), as_long(idx)))
         # syndrome: every edge's variable row and check row
         var_idx = np.concatenate([r[3].cpu().numpy() for r in self._rows])
         chk_idx = np.concatenate([
             bi * Z + np.tile(z, int(tables.row_off[bi + 1] - tables.row_off[bi]))
             for bi in range(qc.mb)
         ])
-        self._var_idx = torch.as_tensor(var_idx, dtype=torch.long, device=device)
-        self._chk_idx = torch.as_tensor(chk_idx, dtype=torch.long, device=device)
+        self._var_idx = as_long(var_idx)
+        self._chk_idx = as_long(chk_idx)
+        if self.flooding:
+            self._flood_tables(as_long)
+        if track_norm:
+            info = np.asarray(info_pos, np.int64)
+            self._info = as_long(info)
+            self._k = torch.tensor(float(max(info.size, 1)),
+                                   dtype=torch.float32, device=device)
+
+    def _flood_tables(self, as_long) -> None:
+        """Gather indices of the flooding sweep, grouped by degree so that
+        each phase is a few tensor ops: per row degree d, the rows' L reads
+        and E slots [rows, d, Z]; per column degree, the columns' E reads
+        (flattened ``slot * Z + (z - s) % Z``) [cols, d, Z]."""
+        t = self.tables
+        qc = t.qc
+        Z = qc.Z
+        z = np.arange(Z)
+        by_deg: dict[int, list[int]] = {}
+        for bi in range(qc.mb):
+            by_deg.setdefault(int(t.row_off[bi + 1] - t.row_off[bi]), []).append(bi)
+        self._flood_rows = []
+        for d, rows in sorted(by_deg.items()):
+            if d == 0:
+                continue
+            slots = np.asarray([[int(t.row_off[bi]) + j for j in range(d)]
+                                for bi in rows])  # [nr, d]
+            lidx = (t.slot_col[slots][..., None] * Z
+                    + (z + t.slot_shift[slots][..., None]) % Z)  # [nr, d, Z]
+            self._flood_rows.append((d, len(rows), as_long(slots.ravel()),
+                                     as_long(lidx.ravel())))
+        col_off, col_slot, col_shift = t.column_slots()
+        by_deg = {}
+        for bj in range(qc.nb):
+            by_deg.setdefault(int(col_off[bj + 1] - col_off[bj]), []).append(bj)
+        self._flood_cols = []
+        for d, cols in sorted(by_deg.items()):
+            ent = np.asarray([[int(col_off[bj]) + j for j in range(d)]
+                              for bj in cols], np.int64).reshape(len(cols), d)
+            eidx = (col_slot[ent][..., None] * Z
+                    + (z - col_shift[ent][..., None]) % Z)  # [nc, d, Z]
+            self._flood_cols.append((d, as_long(cols), as_long(eidx.ravel())))
 
     def sweep(self, L: torch.Tensor, E: torch.Tensor,
               active: torch.Tensor) -> None:
@@ -238,6 +320,32 @@ class DecodeLoop:
                 L.index_copy_(0, idx, torch.where(active, l_new, old))
             E[lo:hi] = torch.where(active, e_new, e_old)
 
+    def flood_sweep(self, L: torch.Tensor, E: torch.Tensor, llr: torch.Tensor,
+                    active: torch.Tensor) -> None:
+        """One flooding sweep, in place on L and E: every check row from
+        ``roll(L) - E`` (E written where active), then every posterior
+        ``llr + roll(E[slot], -s)`` summed in column-slot order (L written
+        where active, as the kernel does)."""
+        qc = self.tables.qc
+        Z = qc.Z
+        B = L.shape[1]
+        for d, nr, slots, lidx in self._flood_rows:
+            e_old = E.index_select(0, slots).view(nr, d, Z, B)
+            msgs = L.index_select(0, lidx).view(nr, d, Z, B) - e_old
+            e_new = check_update(msgs.transpose(0, 1), self.variant,
+                                 self.alpha, self.beta).transpose(0, 1)
+            E.index_copy_(0, slots, torch.where(active, e_new, e_old)
+                          .reshape(nr * d, Z, B))
+        Ef = E.view(-1, B)
+        L3 = L.view(qc.nb, Z, B)
+        for d, cols, eidx in self._flood_cols:
+            g = Ef.index_select(0, eidx).view(len(cols), d, Z, B)
+            acc = llr.view(qc.nb, Z, B).index_select(0, cols)
+            for j in range(d):
+                acc = acc + g[:, j]
+            L3.index_copy_(0, cols, torch.where(active, acc,
+                                                L3.index_select(0, cols)))
+
     def unsatisfied(self, L: torch.Tensor) -> torch.Tensor:
         """bool [B]: some check of the lane fails (bit = L < 0)."""
         qc = self.tables.qc
@@ -247,7 +355,7 @@ class DecodeLoop:
         par.index_add_(0, self._chk_idx, bits)
         return ((par & 1) != 0).any(dim=0)
 
-    def run(self, L: torch.Tensor, done0: torch.Tensor):
+    def decode(self, L: torch.Tensor, done0: torch.Tensor):
         qc = self.tables.qc
         n, B = L.shape
         if n != qc.n:
@@ -255,8 +363,11 @@ class DecodeLoop:
         dev = L.device
         E = torch.zeros((self.tables.e_slots, qc.Z, B), dtype=torch.float32,
                         device=dev)
+        llr = L.clone() if self.flooding else None
         done = done0.to(torch.bool).clone()
         conv = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        norm = torch.zeros(B, dtype=torch.float32, device=dev)
+        prior = L.index_select(0, self._info) if self.track_norm else None
         nt = -(-B // self.lanes)
         pad = nt * self.lanes - B
         trips = torch.zeros(nt, dtype=torch.int32, device=dev)
@@ -269,12 +380,26 @@ class DecodeLoop:
                 break
             active = ~done
             for _ in range(ce):
-                self.sweep(L, E, active)
+                if self.flooding:
+                    self.flood_sweep(L, E, llr, active)
+                else:
+                    self.sweep(L, E, active)
             ok_now = ~self.unsatisfied(L)
+            if self.track_norm:
+                # integer flip count over the info bits, divided once in f32
+                Li = L.index_select(0, self._info)
+                flips = ((Li.abs() <= LLR_WINDOW) & (prior * Li < 0)).sum(dim=0)
+                norm = torch.where(active, flips.to(torch.float32) / self._k,
+                                   norm)
+                prior = Li
             conv = torch.where(active & ok_now,
                                torch.full_like(conv, it + ce - 1), conv)
             done = done | ok_now
             trips += ce * tile_live.to(torch.int32)
             it += ce
         iters = trips.repeat_interleave(self.lanes)[:B]
+        return done, conv, iters, norm
+
+    def run(self, L: torch.Tensor, done0: torch.Tensor):
+        done, conv, iters, _ = self.decode(L, done0)
         return done, conv, iters

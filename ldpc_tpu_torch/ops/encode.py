@@ -1,6 +1,6 @@
 """Batched GF(2) systematic encoding as one matrix product.
 
-Counterpart of ``ldpc_tpu/ops/encode.py:39-79``. ``parity = (u @ P) mod 2``
+Counterpart of ``ldpc_tpu/ops/encode.py:19-79``. ``parity = (u @ P) mod 2``
 is exact in float32 while the integer sums stay below 2^24. The operands are
 kept in float32 on purpose: a bf16 product returns bf16, which rounds
 integer sums above 256, and a WiMAX parity sum reaches k = 576. TF32 (when a
@@ -30,6 +30,19 @@ def generator_T(spec, graph: str = "orig") -> np.ndarray:
     Gfull[dm[info_cols], np.nonzero(info_cols)[0]] = 1.0
     Gfull[:, ~info_cols] = spec.P[:, dm[~info_cols] - k]
     return np.ascontiguousarray(Gfull.T)
+
+
+def make_encoder(spec, graph: str = "orig",
+                 device: str | torch.device | None = None):
+    """Build ``encode(u: [B, k]) -> f32 [B, n]``: codewords on the major
+    axis, the layout of the unfused path (``encode.py:19-36``)."""
+    G = torch.from_numpy(np.ascontiguousarray(generator_T(spec, graph).T)) \
+        .to(resolve_device(device))
+
+    def encode(u: torch.Tensor) -> torch.Tensor:
+        return torch.remainder(u.to(torch.float32) @ G, 2.0)
+
+    return encode
 
 
 def make_encoder_T(spec, graph: str = "orig",

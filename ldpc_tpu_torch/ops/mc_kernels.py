@@ -232,34 +232,77 @@ def kernel_dmax(tables: QCTables) -> int:
     )
 
 
-def table_len(tables: QCTables) -> int:
-    """Ints of the schedule tables the kernel stages in shared memory."""
+def table_len(tables: QCTables, flood: bool = False) -> int:
+    """Ints of the schedule tables the kernel stages in shared memory (a
+    flooding schedule has no layer groups and adds the column tables)."""
     qc = tables.qc
+    if flood:
+        return (qc.mb + 1) + 4 * tables.e_slots + qc.mb + (qc.nb + 1)
     ng = len(tables.groups)
     return (qc.mb + 1) + 2 * tables.e_slots + ng * tables.R + ng + qc.mb
 
 
-def smem_bytes(tables: QCTables, lpb: int) -> int:
+def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
+    """int32 table the kernels read, in ``csrc/mc_decoder.cu``'s order: row
+    offsets, slot columns and shifts, layer groups (padded with -1) and their
+    multi-diagonal flags (none under flooding), multi-diagonal rows, the
+    column tables (flooding only), then the info mask [n] (read from device
+    memory, not staged)."""
+    t = tables
+    info_mask = np.zeros(t.qc.n, np.int32)
+    info_mask[np.asarray(info_pos, np.int64)] = 1
+    parts = [t.row_off, t.slot_col, t.slot_shift]
+    if flood:
+        parts += [t.row_dup, *t.column_slots()]
+    else:
+        groups = np.full((len(t.groups), t.R), -1, np.int32)
+        for g, rows in enumerate(t.groups):
+            groups[g, :len(rows)] = rows
+        grp_dup = np.asarray(
+            [int(any(t.row_dup[bi] for bi in rows)) for rows in t.groups],
+            np.int32)
+        parts += [groups.ravel(), grp_dup, t.row_dup]
+    return np.concatenate(parts + [info_mask]).astype(np.int32)
+
+
+def smem_bytes(tables: QCTables, lpb: int, flood: bool = False) -> int:
     """Dynamic shared memory of one block: L, E (and the delta scratch of
-    multi-diagonal rows) for ``lpb`` codewords, plus the tables."""
+    multi-diagonal layers, or flooding's channel LLRs) for ``lpb``
+    codewords, plus the tables."""
     qc = tables.qc
     per_lane = qc.n + tables.e_slots * qc.Z
-    if tables.has_dup:
+    if flood:
+        per_lane += qc.n
+    elif tables.has_dup:
         per_lane += tables.R * kernel_dmax(tables) * qc.Z
-    return 4 * (lpb * per_lane + table_len(tables))
+    return 4 * (lpb * per_lane + table_len(tables, flood))
+
+
+def block_plan(tables: QCTables, flood: bool = False) -> tuple[int, int]:
+    """(codewords per block, rows per step): the most of 8/4/2/1 codewords
+    whose threads (codewords x rows per step x Z) and shared memory fit one
+    block. A layered step runs its layer group's rows; a flooding sweep
+    takes 2 rows per step where the code has them. A code that fits no
+    block raises with its bytes."""
+    qc = tables.qc
+    rows = ((2, 1) if qc.mb >= 2 else (1,)) if flood else (tables.R,)
+    for lpb in (8, 4, 2, 1):
+        for R in rows:
+            if (lpb * R * qc.Z <= _MAX_THREADS
+                    and smem_bytes(tables, lpb, flood) <= _SMEM_LIMIT):
+                return lpb, R
+    raise ValueError(
+        f"code n={qc.n}, Z={qc.Z} does not fit one block of the "
+        f"{'flooding' if flood else 'layered'} decode kernel: one codeword "
+        f"needs {smem_bytes(tables, 1, flood)} bytes of shared memory and "
+        f"{rows[-1] * qc.Z} threads, a block may use {_SMEM_LIMIT} bytes and "
+        f"{_MAX_THREADS} threads"
+    )
 
 
 def lanes_per_block(tables: QCTables) -> int:
-    """Codewords per block: the most of 8/4/2/1 whose threads
-    (lanes x rows per step x Z) and shared memory fit one block."""
-    for lpb in (8, 4, 2, 1):
-        if (lpb * tables.R * tables.qc.Z <= _MAX_THREADS
-                and smem_bytes(tables, lpb) <= _SMEM_LIMIT):
-            return lpb
-    raise ValueError(
-        f"code n={tables.qc.n}, Z={tables.qc.Z} does not fit one block "
-        "of the decode kernel"
-    )
+    """Codewords per block of the layered kernels (:func:`block_plan`)."""
+    return block_plan(tables)[0]
 
 
 class _FusedBase:
@@ -295,26 +338,15 @@ class _FusedBase:
         """(plain decode loop, info index, kernel tables) for one device."""
         key = str(device)
         if key not in self._per_device:
-            t = self.tables
-            info_mask = np.zeros(self.qc.n, np.int32)
-            info_mask[self.info_pos] = 1
-            groups = np.full((len(t.groups), t.R), -1, np.int32)
-            for g, rows in enumerate(t.groups):
-                groups[g, :len(rows)] = rows
-            grp_dup = np.asarray(
-                [int(any(t.row_dup[bi] for bi in rows)) for rows in t.groups],
-                np.int32)
-            tab = np.concatenate([t.row_off, t.slot_col, t.slot_shift,
-                                  groups.ravel(), grp_dup, t.row_dup,
-                                  info_mask]).astype(np.int32)
-            loop = DecodeLoop(t, self.max_iterations, self.variant,
+            loop = DecodeLoop(self.tables, self.max_iterations, self.variant,
                               alpha=self.alpha, beta=self.beta,
                               check_every=self.check_every, lanes=self.lanes,
                               device=device)
             self._per_device[key] = (
                 loop,
                 torch.as_tensor(self.info_pos, device=device),
-                torch.as_tensor(tab, device=device),
+                torch.as_tensor(kernel_table(self.tables, self.info_pos),
+                                device=device),
             )
         return self._per_device[key]
 

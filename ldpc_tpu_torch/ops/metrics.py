@@ -3,7 +3,8 @@
 Counterpart of ``ldpc_tpu/ops/metrics.py:24-127``:
   * FER counts frames whose decode result != OK.
   * BER counts erroneous info bits only for failed frames unless ``exact``
-    (the runner applies that rule to the kernels' every-frame counts).
+    (:func:`block_stats` on the unfused path; the runner applies the same
+    rule to the fused kernels' every-frame counts).
   * average convergence iterations average over converged frames only.
 """
 
@@ -37,6 +38,20 @@ class BlockStats(NamedTuple):
     ok: torch.Tensor  # bool
     conv_iter: torch.Tensor  # int32
     norm_llr: torch.Tensor  # f32
+
+
+def block_stats(u: torch.Tensor, result, info_pos: torch.Tensor,
+                exact: bool = False) -> BlockStats:
+    """Per-codeword stats of one decoded batch: ``u`` uint8 [B, k] the sent
+    info bits, ``result`` a DecodeResult, ``info_pos`` int64 [k] their
+    codeword positions."""
+    decoded = result.est.index_select(1, info_pos)
+    errs = (decoded != u.to(decoded.dtype)).sum(dim=1).to(torch.int32)
+    if not exact:
+        # reference: bits counted only when decode failed (main.py:134)
+        errs = torch.where(result.ok, torch.zeros_like(errs), errs)
+    return BlockStats(error_bits=errs, ok=result.ok,
+                      conv_iter=result.conv_iter, norm_llr=result.norm_llr)
 
 
 def reduce_block_stats(stats: BlockStats, valid: torch.Tensor) -> BlockCounters:

@@ -1,0 +1,209 @@
+"""The standalone QC decoder (CUDA) and its plain PyTorch version.
+
+Replaces the Pallas kernel ``ldpc_tpu/ops/spa_pallas.py:626``
+``make_qc_decoder`` (kernel body ``:686-708``, ``pallas_call`` ``:710``), the
+decoder of every run the fused Monte-Carlo kernels cannot take: interleavers,
+Gray QAM, shorten/puncture, ``fused='off'``, the flooding schedule and the
+normalized-LLR metric. :class:`QCDecoder` decodes given channel LLRs with the
+layered (serial or paired groups, ``check_every``) or the flooding schedule
+and returns the hard decisions, ok, the convergence iteration, the
+normalized-LLR flip metric and the trip count.
+
+The kernel (``qc_decoder_kernel`` in ``csrc/mc_decoder.cu``) shares the
+``decode_block`` device loop of the fused kernels. What bounds it on the
+card: as for them, a chain of dependent steps per codeword (a layer, or a
+flooding sweep's check then posterior phase), each a gather along Z, a
+leave-one-out combine and a scatter with a block barrier between; its
+device-memory traffic is the LLRs in and the decisions out. So it is bound
+by operations and by the latency of those steps. The design keeps a block's
+posteriors L, extrinsics E and, under flooding, the channel LLRs (which every
+flooding sweep restarts from) in shared memory for the whole decode; the flip
+metric's previous posteriors, read once per check, stay in device memory. A
+code whose block does not fit raises with its bytes; it never decodes
+wrong.
+
+The wrapper takes its plain version for a tensor on the CPU and launches the
+kernel for a CUDA tensor (it raises on what the kernel does not take; there
+is no fallback). ``QC_KERNEL.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ldpc_tpu_torch.models.qc import QCLayout
+from ldpc_tpu_torch.ops.build import Kernel
+from ldpc_tpu_torch.ops.decode_loop import DecodeLoop, build_tables, normalize_variant
+from ldpc_tpu_torch.ops.mc_kernels import (
+    _VARIANT_CODE,
+    block_plan,
+    kernel_dmax,
+    kernel_table,
+)
+from ldpc_tpu_torch.ops.spa import DecodeResult
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+QC_KERNEL = Kernel(
+    "mc_decoder", "qc_decoder_launch",
+    [_P, _P,  # llr, prior
+     _P, _P, _P, _P, _P,  # est ok conv norm iters
+     _P,  # tables
+     _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R lpb B
+     _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
+     _I, _I, _I, _I, _I, _I,  # dmax has_dup flood track_norm k skip
+     _I, _P],  # device stream
+)
+
+
+class QCDecoder:
+    """``decode(llr, skip=None) -> DecodeResult`` for one QC code.
+
+    ``llr`` f32 [B, n] follows the channel convention (LLR > 0 <=> bit 1)
+    and is negated inside into log(p0/p1), as ``spa_pallas.py:718`` does;
+    the parity rule is the exact one. ``skip`` nonzero pre-marks every lane
+    done (the loop exits before iteration 0; outputs are placeholders).
+    ``info_pos`` locates the info bits the normalized-LLR metric counts
+    (``track_norm``). The plain version runs blocks of the kernel's width,
+    so even the per-codeword trip counts of :meth:`outputs` agree.
+    """
+
+    def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
+                 variant: str = "spa", *, alpha: float = 0.75,
+                 beta: float = 0.15, schedule: str = "flooding",
+                 track_norm: bool = True, msg_store: str = "f32",
+                 layer_groups=None, check_every: int = 1):
+        if schedule not in ("flooding", "layered"):
+            raise ValueError(f"Unknown schedule: {schedule!r}")
+        if layer_groups is not None and schedule != "layered":
+            raise ValueError("layer_groups requires schedule='layered'")
+        if msg_store != "f32":
+            raise NotImplementedError(
+                f"msg_store={msg_store!r} is not ported yet (ROADMAP.md)")
+        if np.ndim(alpha) != 0:
+            raise NotImplementedError(
+                "per-iteration alpha schedules are not ported yet (ROADMAP.md)")
+        if check_every < 1 or max_iterations % check_every:
+            raise ValueError(f"check_every={check_every} must divide "
+                             f"max_iterations={max_iterations}")
+        if track_norm and check_every > 1:
+            raise ValueError(
+                "check_every > 1 requires track_norm=False: the "
+                "normalized-LLR flip metric is defined per iteration")
+        self.qc = qc
+        self.variant = normalize_variant(variant)
+        self.schedule = schedule
+        self.flood = schedule == "flooding"
+        self.track_norm = bool(track_norm)
+        self.tables = build_tables(qc, layer_groups)
+        self.max_iterations = int(max_iterations)
+        self.alpha, self.beta = float(alpha), float(beta)
+        self.check_every = int(check_every)
+        self.info_pos = np.asarray(info_pos, np.int64)
+        self.kernel_lanes, self.rows_per_step = block_plan(self.tables,
+                                                           self.flood)
+        self._dmax = kernel_dmax(self.tables)
+        self._per_device: dict = {}
+
+    def _dev(self, device):
+        """(plain decode loop, kernel tables) for one device."""
+        device = torch.device(device)
+        key = str(device)
+        if key not in self._per_device:
+            loop = DecodeLoop(self.tables, self.max_iterations, self.variant,
+                              alpha=self.alpha, beta=self.beta,
+                              check_every=self.check_every,
+                              lanes=self.kernel_lanes, device=device,
+                              schedule=self.schedule,
+                              track_norm=self.track_norm,
+                              info_pos=self.info_pos)
+            tab = torch.as_tensor(
+                kernel_table(self.tables, self.info_pos, self.flood),
+                device=device)
+            self._per_device[key] = (loop, tab)
+        return self._per_device[key]
+
+    # ------------------------------------------------------------- calls --
+
+    def __call__(self, llr: torch.Tensor, skip=None) -> DecodeResult:
+        return self._result(*self.outputs(llr, skip))
+
+    decode = __call__
+
+    def outputs(self, llr: torch.Tensor, skip=None):
+        """``(est, ok, conv, norm, iters)``: uint8 [B, n], bool, int32, f32
+        and int32 [B] (``iters`` is the trip count of the lane's block)."""
+        if llr.device.type == "cpu":
+            return self.plain_outputs(llr, skip)
+        if llr.device.type != "cuda":
+            raise ValueError(f"no kernel for device {llr.device}")
+        return self._launch(llr, skip)
+
+    def plain_outputs(self, llr: torch.Tensor, skip=None):
+        """The kernel's arithmetic in PyTorch, on any device."""
+        B = llr.shape[0]
+        loop, _ = self._dev(llr.device)
+        L = (-llr.to(torch.float32)).T.contiguous()
+        done0 = torch.full((B,), bool(_skip(skip)), dtype=torch.bool,
+                           device=llr.device)
+        done, conv, iters, norm = loop.decode(L, done0)
+        est = (L < 0).T.contiguous().to(torch.uint8)
+        return est, done, conv, norm, iters
+
+    @staticmethod
+    def _result(est, ok, conv, norm, iters) -> DecodeResult:
+        iters_run = (iters.max() if iters.numel()
+                     else torch.zeros((), dtype=torch.int32, device=iters.device))
+        return DecodeResult(ok=ok, est=est, conv_iter=conv, norm_llr=norm,
+                            iters_run=iters_run)
+
+    def _launch(self, llr: torch.Tensor, skip):
+        dev = llr.device
+        n = self.qc.n
+        if llr.dtype != torch.float32:
+            raise ValueError(f"llr has dtype {llr.dtype}, expected torch.float32")
+        if llr.dim() != 2 or llr.shape[1] != n:
+            raise ValueError(f"llr has shape {tuple(llr.shape)}, expected (B, {n})")
+        if not llr.is_contiguous():
+            raise ValueError("llr must be contiguous")
+        B = llr.shape[0]
+        _, tab = self._dev(dev)
+        est = torch.empty((B, n), dtype=torch.uint8, device=dev)
+        ok = torch.empty(B, dtype=torch.bool, device=dev)
+        conv = torch.empty(B, dtype=torch.int32, device=dev)
+        norm = torch.empty(B, dtype=torch.float32, device=dev)
+        iters = torch.empty(B, dtype=torch.int32, device=dev)
+        if B == 0:  # nothing to launch
+            return est, ok, conv, norm, iters
+        prior = (torch.empty((n, B), dtype=torch.float32, device=dev)
+                 if self.track_norm else None)
+        t, qc = self.tables, self.qc
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            QC_KERNEL(
+                llr.data_ptr(), None if prior is None else prior.data_ptr(),
+                est.data_ptr(), ok.data_ptr(), conv.data_ptr(),
+                norm.data_ptr(), iters.data_ptr(), tab.data_ptr(),
+                qc.n, qc.Z, qc.nb, qc.mb, t.e_slots,
+                0 if self.flood else len(t.groups), self.rows_per_step,
+                self.kernel_lanes, B, self.max_iterations, self.check_every,
+                _VARIANT_CODE[self.variant], self.alpha, self.beta,
+                self._dmax, 0 if self.flood else int(t.has_dup),
+                int(self.flood), int(self.track_norm), int(self.info_pos.size),
+                int(_skip(skip)), dev.index, stream,
+            )
+        return est, ok, conv, norm, iters
+
+
+def _skip(skip) -> bool:
+    """``skip`` as a host bool (a tensor is read back once)."""
+    if skip is None:
+        return False
+    if isinstance(skip, torch.Tensor):
+        return bool(skip.item())
+    return bool(skip)

@@ -1,6 +1,6 @@
-"""Check-node constants and the leave-one-out combine order.
+"""Check-node constants, the decoders' result and the leave-one-out order.
 
-Counterpart of ``ldpc_tpu/ops/spa.py:48-51, 89-110``. The decode loop's
+Counterpart of ``ldpc_tpu/ops/spa.py:48-60, 89-110``. The decode loop's
 plain version (ldpc_tpu_torch.ops.decode_loop) and the CUDA kernel
 (csrc/mc_decoder.cu) both evaluate the leave-one-out products and minima in
 the order :func:`exclusive_combine` defines, the precondition for min-sum
@@ -9,7 +9,10 @@ results that are equal bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
 
 # Reference clipping constants (spa_decoder.py:139-145,167); in float32 the
 # tightest representable magnitude below 1 plays the role of PROD_CLIP.
@@ -17,6 +20,14 @@ TANH_IN_CLIP = 17.5
 PROD_CLIP_F64 = 0.99999999999999878
 PROD_CLIP_F32 = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 LLR_WINDOW = 7.0  # normalized-LLR confidence window (spa_decoder.py:218)
+
+
+class DecodeResult(NamedTuple):
+    ok: torch.Tensor  # bool [B]   syndrome satisfied
+    est: torch.Tensor  # uint8 [B, n]  estimated codeword bits
+    conv_iter: torch.Tensor  # int32 [B]  0-based converging iteration, -1 if failed
+    norm_llr: torch.Tensor  # f32 [B]    normalized-LLR at the final iteration
+    iters_run: torch.Tensor  # int32 []   iterations the batch actually executed
 
 
 def exclusive_combine(values, op):

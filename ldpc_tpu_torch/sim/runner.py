@@ -1,7 +1,12 @@
-"""Monte-Carlo point executor: the fused path of the JAX runner.
+"""SNR sweep and Monte-Carlo point executor of the port.
 
-Counterpart of ``ldpc_tpu/sim/runner.py:63-177, 413-889, 948-1092`` for the
-fused path only. Per batch of codewords:
+Counterpart of ``ldpc_tpu/sim/runner.py``: ``PointExecutor`` (``:413-1092``)
+and ``run_simulation`` (``:1095-1402``). Each batch of codewords takes one of
+two pipelines.
+
+The fused path (``:521-872``), for a QC code, the exact rule on the original
+graph, an SPA / min-sum decoder, no interleaver, BPSK or the QPSK proxy, no
+shorten/puncture, the layered schedule and no normalized-LLR metric:
 
 1. random info bits (a ``torch.Generator`` seeded from (seed, point, batch));
 2. the systematic encode, one matrix product (ops.encode);
@@ -13,20 +18,46 @@ fused path only. Per batch of codewords:
    re-decoding them from the emitted LLRs with the full budget;
 5. the failed-frames BER rule, ``reduce_block_stats`` and ``pack_counters``.
 
+The unfused path (``:891-946``), for everything else the QC decoder takes:
+any interleaver, Gray QAM, shorten/puncture, ``fused='off'``, the flooding
+schedule and ``--normalized-llr``. The batch's key splits into three
+generators (info bits, interleaver, channel):
+
+1. random info bits, the last S zeroed under shorten;
+2. the systematic encode into [B, n];
+3. interleave; the channel (ops.channel); deinterleave;
+4. punctured positions become erasures (``llr * mask``), shortened ones
+   known zeros (-60);
+5. the standalone QC decoder (ops.qc_kernels.QCDecoder, the CUDA port of
+   ``spa_pallas.make_qc_decoder``);
+6. ``block_stats`` with the failed-frames BER rule, ``reduce_block_stats``
+   and ``pack_counters``.
+
+``fused='auto'`` takes the fused path whenever it is eligible, on either
+device. On a TPU the JAX package's ``auto`` also fuses the flooding schedule
+and the normalized-LLR metric; the port's fused kernels run neither yet, so
+here those configurations take the unfused path (ROADMAP.md).
+
 A Python loop over batches takes the place of ``lax.scan``. Counters
 accumulate on the device and the host fetches them once per point (and
 every few batches under ``target_errors``). Every decode op is per codeword,
 so a two-phase split gives the same counters as a single pass, and a point
 run in pieces (``start_batch``) gives the same counters as one run.
 
-Still to be ported (ROADMAP.md): the unfused path (interleavers, QAM,
-shorten/puncture, the flooding schedule), the normalized-LLR metric, int8
-extrinsics, alpha schedules, meshes, the SNR sweep and the CLI.
+Still to be ported (ROADMAP.md): the XLA decoder on ``EdgeLayout`` (``--kernel
+xla``, the legacy rule and the ``std`` graph of ``--fidelity reference``,
+non-QC codes), bit-flipping, int8 extrinsics, alpha schedules, the
+Richardson-Urbanke encoder, ``--profile``, meshes, the parallel sweep,
+adaptive mode and the CLI.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import time
 from dataclasses import dataclass
+from datetime import datetime
 from functools import lru_cache
 
 import numpy as np
@@ -35,17 +66,29 @@ import torch
 from ldpc_tpu_torch.models import standards
 from ldpc_tpu_torch.models.code import LDPCCode
 from ldpc_tpu_torch.models.qc import paired_layer_groups
-from ldpc_tpu_torch.ops.channel import ChannelParams
+from ldpc_tpu_torch.ops.channel import ChannelParams, make_channel_fn
 from ldpc_tpu_torch.ops.decode_loop import VARIANTS
-from ldpc_tpu_torch.ops.encode import make_encoder_T, random_info_bits
+from ldpc_tpu_torch.ops.encode import (
+    make_encoder,
+    make_encoder_T,
+    random_info_bits,
+)
+from ldpc_tpu_torch.ops.interleave import make_interleaver
 from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
 from ldpc_tpu_torch.ops.metrics import (
     BlockCounters,
     BlockStats,
+    block_stats,
     pack_counters,
     reduce_block_stats,
 )
+from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
 from ldpc_tpu_torch.sim.config import SimOptions
+from ldpc_tpu_torch.sim.results import (
+    SimulationConfig,
+    SimulationResult,
+    SNRPointResult,
+)
 from ldpc_tpu_torch.utils.db import resolve_matrix
 from ldpc_tpu_torch.utils.device import resolve_device
 
@@ -160,6 +203,59 @@ def derive_key(key: int, index: int) -> int:
     return _mix(_mix(int(key) & _M64) ^ (int(index) & _M64))
 
 
+def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
+                    max_iterations: int, device: torch.device):
+    """The decoder of the unfused path and its ``kernel_used`` name
+    (``runner.py:237-388``): the QC decoder (CUDA, or its plain version for
+    the CPU) for a QC code with the exact rule on the original graph and an
+    SPA / min-sum variant, when ``kernel`` is 'auto' or 'pallas'. Everything
+    else needs the XLA decoder on ``EdgeLayout`` or bit-flipping, which are
+    still to be ported (ROADMAP.md)."""
+    variant = opts.decoder_variant
+    schedule = opts.schedule or "flooding"
+    if opts.kernel not in ("auto", "pallas", "xla"):
+        raise ValueError(f"Unknown kernel: {opts.kernel!r}")
+    if opts.kernel == "xla":
+        raise NotImplementedError(
+            "--kernel xla: the XLA decoder on EdgeLayout is not ported yet "
+            "(ROADMAP.md)")
+    missing = [
+        what for what, bad in (
+            ("a quasi-cyclic code", code.qc is None),
+            ("check_rule='exact' (the legacy rule of --fidelity reference "
+             "needs the XLA decoder)", opts.check_rule != "exact"),
+            ("decode_graph='orig' (the std graph of --fidelity reference "
+             "needs the XLA decoder)",
+             opts.decode_graph not in ("orig", "original")),
+            ("an SPA/min-sum decoder (bit-flipping is not ported)",
+             variant not in VARIANTS),
+        ) if bad
+    ]
+    if missing:
+        raise NotImplementedError(
+            "the port decodes with the QC decoder only so far; the XLA "
+            "decoder on EdgeLayout and bit-flipping are still to be ported "
+            "(ROADMAP.md). This configuration needs " + ", ".join(missing))
+    layer_groups = resolve_layer_groups(code.qc, opts, schedule)
+    decoder = QCDecoder(
+        code.qc, info_pos, max_iterations, variant,
+        alpha=opts.minsum_alpha, beta=opts.minsum_beta, schedule=schedule,
+        track_norm=opts.normalized_llr, msg_store=opts.msg_store,
+        layer_groups=layer_groups, check_every=opts.check_every,
+    )
+    kind = "cuda" if device.type == "cuda" else "cpu"
+    if schedule == "layered":
+        kind += "+layered"
+    if layer_groups is not None:
+        kind += "+paired"
+    if opts.check_every > 1:
+        kind += f"+ce{opts.check_every}"
+    return decoder, kind
+
+
+KNOWN_LLR = 60.0  # |LLR| of a known bit; channel convention: 0 -> negative
+
+
 @dataclass
 class PointStats:
     """Host-side aggregate for one SNR point."""
@@ -183,14 +279,16 @@ class PointStats:
 
 
 class PointExecutor:
-    """The fused Monte-Carlo step of one (code, iterations, modulation,
-    decoder) configuration, reusable across SNR points.
+    """The Monte-Carlo step of one (code, iterations, interleaver,
+    modulation, decoder) configuration, reusable across SNR points: the
+    fused path when the configuration is eligible, else the unfused one.
 
     ``device=None`` means the card (and raises without CUDA); the tests pass
     ``device="cpu"``, which runs the kernels' plain versions."""
 
     def __init__(self, code: LDPCCode, opts: SimOptions, *,
                  max_iterations: int | None = None,
+                 interleaver: str | None = None,
                  modulation: int | None = None,
                  device: str | torch.device | None = None):
         opts = opts.resolved()
@@ -199,33 +297,16 @@ class PointExecutor:
         self.opts = opts
         self.graph = opts.decode_graph
         self.max_iterations = max_iterations or opts.iterations
+        il_kind = interleaver if interleaver is not None else opts.interleaver
         self.modulation = modulation or opts.modulation
-        self.batch = opts.auto_batch(code.n)
-        schedule = opts.schedule or "flooding"
-        variant = opts.decoder_variant
-        missing = [
-            what for what, bad in (
-                ("a quasi-cyclic code", code.qc is None),
-                ("check_rule='exact'", opts.check_rule != "exact"),
-                ("decode_graph='orig'", self.graph not in ("orig", "original")),
-                ("an SPA/min-sum decoder", variant not in VARIANTS),
-                ("no interleaver", opts.interleaver != "none"),
-                ("modulation 1 or 2", self.modulation not in (1, 2)),
-                ("channel mode 1-3", opts.mode not in (1, 2, 3)),
-                ("no shorten/puncture", bool(opts.shorten or opts.puncture)),
-                ("fused != 'off'", opts.fused == "off"),
-                ("schedule='layered'", schedule != "layered"),
-            ) if bad
-        ]
-        if missing:
-            raise NotImplementedError(
-                "the port runs the fused layered path only so far "
-                "(ROADMAP.md lists the rest); this configuration needs "
-                + ", ".join(missing)
+        if self.modulation in (4, 16, 64) and opts.noise_model == "legacy":
+            raise ValueError(
+                "QAM modulations require noise_model='exact' (use --fidelity "
+                "exact or --noise-model exact): the legacy sigma^2-as-stddev "
+                "quirk is BPSK-specific and would make the SNR axis "
+                "incomparable"
             )
-        if opts.normalized_llr:
-            raise NotImplementedError(
-                "--normalized-llr is not ported yet (ROADMAP.md)")
+        self.batch = opts.auto_batch(code.n)
         if opts.msg_store != "f32":
             raise NotImplementedError(
                 "--msg-store int8 is not ported yet (ROADMAP.md)")
@@ -235,6 +316,66 @@ class PointExecutor:
 
         spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
         info_pos = spec.info_pos(self.graph)
+
+        # rate adaptation: shorten the LAST S info bits (known zeros at the
+        # receiver), puncture the LAST P parity positions (erasures)
+        S, P = opts.shorten, opts.puncture
+        n_parity = code.n - code.k
+        if not 0 <= S < code.k:
+            raise ValueError(f"shorten={S} out of range [0, k={code.k})")
+        if not 0 <= P < n_parity:
+            raise ValueError(f"puncture={P} out of range [0, n-k={n_parity})")
+        self.k_active = code.k - S
+        self.effective_rate = self.k_active / max(code.n - S - P, 1)
+        if (S or P) and abs(opts.speed - self.effective_rate) > 1e-9 \
+                and not opts.quiet:
+            print(
+                f"Note: shorten/puncture give an effective rate of "
+                f"{self.effective_rate:.4f} but the Eb/N0 scaling uses "
+                f"--speed {opts.speed:g}; pass --speed "
+                f"{self.effective_rate:.6g} if the SNR axis should be "
+                f"per-info-bit of the adapted code"
+            )
+
+        schedule = opts.schedule or "flooding"
+        variant = opts.decoder_variant
+        fused_missing = [
+            what for what, bad in (
+                ("fused != 'off'", opts.fused == "off"),
+                ("kernel 'auto' or 'pallas'",
+                 opts.kernel not in ("auto", "pallas")),
+                ("a quasi-cyclic code", code.qc is None),
+                ("check_rule='exact'", opts.check_rule != "exact"),
+                ("decode_graph='orig'", self.graph not in ("orig", "original")),
+                ("an SPA/min-sum decoder", variant not in VARIANTS),
+                ("no interleaver", il_kind != "none"),
+                ("modulation 1 or 2", self.modulation not in (1, 2)),
+                ("channel mode 1-3", opts.mode not in (1, 2, 3)),
+                ("no shorten/puncture", bool(S or P)),
+                ("schedule='layered' (the port's fused kernels do not run "
+                 "flooding yet)", schedule != "layered"),
+                ("no --normalized-llr (not in the port's fused kernels yet)",
+                 opts.normalized_llr),
+            ) if bad
+        ]
+        if opts.fused == "on" and fused_missing:
+            raise ValueError(
+                "fused='on' requires " + ", ".join(fused_missing))
+        self.fused = not fused_missing
+        self.phase1 = 0
+        self._auto = False
+        self.last_probe: dict = {}
+        self._two_phase_choice: dict[float, bool] = {}
+        self._overhead_us = None
+        self._consts_cache: dict[float, torch.Tensor] = {}
+        self.total_iters_run = 0
+        if self.fused:
+            self._build_fused(code, opts, spec, info_pos, schedule, variant)
+        else:
+            self._build_unfused(code, opts, spec, info_pos, il_kind, S, P)
+
+    def _build_fused(self, code, opts, spec, info_pos, schedule, variant):
+        """Fused pipeline: encode, then the fused Monte-Carlo kernel."""
         self._encode_T = make_encoder_T(spec, self.graph, self.device)
         layer_groups = resolve_layer_groups(code.qc, opts, schedule)
         self.phase1 = resolve_two_phase(opts.two_phase, self.max_iterations,
@@ -255,12 +396,7 @@ class PointExecutor:
             + "+fused+layered" \
             + ("+paired" if layer_groups is not None else "") \
             + (f"+ce{opts.check_every}" if opts.check_every > 1 else "")
-        self._consts_cache: dict[float, torch.Tensor] = {}
-        self.total_iters_run = 0
-        self.last_probe: dict = {}
         self._auto = bool(self.phase1) and opts.two_phase == "auto"
-        self._two_phase_choice: dict[float, bool] = {}
-        self._overhead_us = None
         if self._auto:
             self.kernel_used = self._kernel_base + "+2phase(auto)"
             if self.device.type == "cuda":
@@ -269,10 +405,38 @@ class PointExecutor:
             self.kernel_used = self._kernel_base + (
                 f"+2phase({self.phase1})" if self.phase1 else "")
 
+    def _build_unfused(self, code, opts, spec, info_pos, il_kind, S, P):
+        """Unfused pipeline (``runner.py:891-946``): encode, interleave,
+        channel, deinterleave, puncture/shorten, the QC decoder, stats."""
+        dev = self.device
+        n_parity = code.n - code.k
+        short_pos = np.asarray(info_pos[self.k_active:], dtype=np.int64)
+        parity_pos = np.setdiff1d(np.arange(code.n, dtype=np.int64),
+                                  np.asarray(info_pos, np.int64))
+        punct_pos = parity_pos[n_parity - P:] if P else np.empty(0, np.int64)
+        # decoder and metrics see only the active info bits
+        info_pos = np.asarray(info_pos[:self.k_active], dtype=np.int64)
+        self._info_pos = torch.as_tensor(info_pos, device=dev)
+        llr_short = np.zeros((1, code.n), np.float32)
+        llr_short[0, short_pos] = 1.0
+        llr_punct = np.ones((1, code.n), np.float32)
+        llr_punct[0, punct_pos] = 0.0
+        self._S, self._P = S, P
+        self._llr_punct = torch.as_tensor(llr_punct, device=dev)
+        self._llr_keep = torch.as_tensor(1.0 - llr_short, device=dev)
+        self._llr_known = torch.as_tensor(KNOWN_LLR * llr_short, device=dev)
+        self._encode = make_encoder(spec, self.graph, dev)
+        self._interleave, self._deinterleave = make_interleaver(
+            il_kind, code.n, s_param=opts.s_param, seed=opts.seed, device=dev)
+        self._channel = make_channel_fn(opts.mode, self.modulation, n=code.n)
+        self._decoder, self.kernel_used = _select_decoder(
+            code, opts, info_pos, self.max_iterations, dev)
+
     # ------------------------------------------------------------ batches --
 
     def _words(self, key: int):
-        """(generator of the info bits, Philox key words) of one batch."""
+        """(generator of the info bits, Philox key words) of one fused
+        batch."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_mix(key ^ 1) >> 1)
         k = _mix(key ^ 2)
@@ -304,13 +468,24 @@ class PointExecutor:
         iters = it1 + unsort(it2)
         return err, ok, conv, norm, iters
 
-    def step(self, key: int, consts: torch.Tensor, p1: int, *,
-             u: torch.Tensor | None = None, raw: torch.Tensor | None = None):
-        """One batch: ``(BlockStats, per-codeword iters)``.
+    def _generator(self, key: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(key >> 1)
+        return gen
 
-        ``u`` (uint8 [batch, k]) and ``raw`` (words in the injected layout)
-        replace the batch's drawn info bits and noise, for tests that feed
-        both packages the same inputs."""
+    def step(self, key: int, consts: torch.Tensor, p1: int = 0, *,
+             u: torch.Tensor | None = None, raw: torch.Tensor | None = None,
+             llr: torch.Tensor | None = None):
+        """One batch: ``(BlockStats, iters)`` (per-codeword trip counts on
+        the fused path, the batch's ``iters_run`` on the unfused one).
+
+        ``u`` (uint8 [batch, k]) replaces the batch's drawn info bits;
+        ``raw`` (fused: noise words in the injected layout) and ``llr``
+        (unfused: f32 [batch, n] channel output, before deinterleaving)
+        replace its noise, for tests that feed both packages the same
+        inputs."""
+        if not self.fused:
+            return self._unfused_step(key, consts, u=u, llr=llr)
         gen, seeds = self._words(key)
         if u is None:
             u = random_info_bits(gen, self.batch, self.code.k)
@@ -321,6 +496,31 @@ class PointExecutor:
             err = torch.where(ok, 0, err).to(torch.int32)
         return BlockStats(error_bits=err, ok=ok, conv_iter=conv,
                           norm_llr=norm), iters
+
+    def _unfused_step(self, key: int, consts: torch.Tensor, *,
+                      u: torch.Tensor | None = None,
+                      llr: torch.Tensor | None = None):
+        if u is None:
+            u = random_info_bits(self._generator(derive_key(key, 0)),
+                                 self.batch, self.code.k)
+        if self._S:
+            u = u.clone()
+            u[:, self.k_active:] = 0
+        w = self._encode(u)
+        w_int, il_state = self._interleave(
+            self._generator(derive_key(key, 1)), w)
+        if llr is None:
+            llr = self._channel(self._generator(derive_key(key, 2)), w_int,
+                                consts)
+        llr = self._deinterleave(il_state, llr)
+        if self._P:  # punctured parity bits arrive as erasures
+            llr = llr * self._llr_punct
+        if self._S:  # shortened info bits are known zeros
+            llr = llr * self._llr_keep - self._llr_known
+        res = self._decoder.decode(llr.contiguous())
+        stats = block_stats(u[:, :self.k_active], res, self._info_pos,
+                            exact=self.opts.exact_ber)
+        return stats, res.iters_run
 
     def packed(self, stats: BlockStats, iters: torch.Tensor,
                take: int) -> torch.Tensor:
@@ -475,3 +675,241 @@ class PointExecutor:
                     break
         flush()
         return stats
+
+
+# ------------------------------------------------------------------ sweep ----
+
+def snr_steps(initial: float, end: float, step: float) -> list[float]:
+    """SNR grid with the reference's stepping (main.py:193, 206-209),
+    validated and de-duplicated (``runner.py:1095-1114``)."""
+    if step <= 0:
+        raise ValueError(f"step_snr must be positive, got {step}")
+    if end < initial:
+        raise ValueError(
+            f"end_snr ({end}) must be >= initial_snr ({initial})"
+        )
+    num_steps = int(math.ceil((end - initial) / step)) + 1
+    values: list[float] = []
+    for i in range(num_steps):
+        snr = min(initial + i * step, end)
+        if not values or snr != values[-1]:
+            values.append(snr)
+    return values
+
+
+def build_point_result(
+    snr_db: float,
+    stats: PointStats,
+    opts: SimOptions,
+    k: int,
+    *,
+    matrix_path: str | None = None,
+    modulation: int | None = None,
+    max_iterations: int | None = None,
+    interleaver: str | None = None,
+) -> SNRPointResult:
+    """Aggregate counters into an SNRPointResult with the reference's
+    averaging semantics (main.py:346-389)."""
+    blocks = stats.blocks
+    avg_ber = 0.0
+    avg_fer = 0.0
+    avg_llr = 0.0
+    if opts.ber and blocks > 0 and k > 0:
+        avg_ber = stats.error_bits / (k * blocks)
+    if opts.fer and blocks > 0:
+        avg_fer = stats.fer_frames / blocks
+    if opts.normalized_llr and blocks > 0:
+        avg_llr = stats.norm_llr_sum / blocks
+    avg_conv = stats.conv_iters_sum / stats.conv_count if stats.conv_count else 0.0
+    return SNRPointResult(
+        snr_db=snr_db,
+        ber=avg_ber,
+        fer=avg_fer,
+        avg_normalized_llr=avg_llr,
+        total_blocks=blocks,
+        successful_blocks=stats.ok_blocks,
+        failed_blocks=blocks - stats.ok_blocks,
+        avg_convergence_iterations=avg_conv,
+        matrix_path=matrix_path if matrix_path is not None else opts.matrix,
+        modulation=modulation if modulation is not None else opts.modulation,
+        max_iterations=max_iterations if max_iterations is not None else opts.iterations,
+        interleaver=interleaver if interleaver is not None else opts.interleaver,
+        encoding_method=opts.encoding_method,
+    )
+
+
+def make_sim_config(opts: SimOptions, code: LDPCCode,
+                    device: str | torch.device | None = None) -> SimulationConfig:
+    """The run's configuration; ``device`` reads ``cuda:<card name>x1`` or
+    ``cpu:x1`` (the port runs on one device)."""
+    dev = resolve_device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+    return SimulationConfig(
+        matrix_path=opts.matrix,
+        n=code.n,
+        m=code.m,
+        k=code.k,
+        rate=code.rate,
+        blocks=opts.blocks,
+        max_iterations=opts.iterations,
+        encoding_method=opts.encoding_method,
+        interleaver_type=opts.interleaver,
+        decoder_type=opts.decoder,
+        channel_mode=opts.mode,
+        modulation=opts.modulation,
+        speed=opts.speed,
+        snr_range=(opts.initial_snr, opts.end_snr, opts.step_snr),
+        threads=opts.threads,
+        timestamp=datetime.now().isoformat(),
+        interference_snr=opts.interference_snr,
+        p=opts.p,
+        fidelity=opts.fidelity,
+        decode_graph=opts.decode_graph or "",
+        check_rule=opts.check_rule or "",
+        noise_model=opts.noise_model or "",
+        batch=opts.batch,
+        seed=opts.seed,
+        device=f"{dev.type}:{name}x1",
+        shorten=opts.shorten,
+        puncture=opts.puncture,
+        schedule=opts.schedule,
+        s_param=opts.s_param,
+        exact_ber=opts.exact_ber,
+        adaptive=opts.adaptive,
+        fused=opts.fused,
+        layer_order=opts.layer_order,
+        check_every=opts.check_every,
+        sublane_groups=str(opts.sublane_groups),
+    )
+
+
+def sweep_fingerprint(config: SimulationConfig) -> tuple:
+    """Sweep-defining identity of a run (``runner.py:1199-1231``): a
+    checkpoint resumes only a sweep with identical code / stats / decoder
+    configuration. Timestamp, device and wall clock are left out, and so is
+    ``two_phase``, a dispatch knob with equal counters; ``batch``,
+    ``layer_order`` and ``check_every`` change the frames or the schedule,
+    so they are in."""
+    return (
+        config.matrix_path, config.n, config.m, config.k,
+        config.blocks, config.max_iterations, config.encoding_method,
+        config.interleaver_type, config.decoder_type, config.channel_mode,
+        config.modulation, config.speed, tuple(config.snr_range),
+        config.interference_snr, config.p, config.fidelity,
+        config.decode_graph, config.check_rule, config.noise_model,
+        config.seed, config.shorten, config.puncture, config.schedule,
+        config.s_param, config.exact_ber, config.adaptive, config.fused,
+        config.layer_order, config.check_every, config.sublane_groups,
+        config.batch,
+    )
+
+
+def load_checkpoint(
+    opts: SimOptions, config: SimulationConfig, say
+) -> SimulationResult | None:
+    """Prior partial result from opts.checkpoint, or None when absent/foreign."""
+    if not (opts.checkpoint and opts.resume and os.path.exists(opts.checkpoint)):
+        return None
+    prior = SimulationResult.from_json(opts.checkpoint)
+    if sweep_fingerprint(prior.config) != sweep_fingerprint(config):
+        say(
+            f"Checkpoint {opts.checkpoint} belongs to a different sweep "
+            f"configuration; starting fresh."
+        )
+        return None
+    say(f"Resuming from {opts.checkpoint}: {len(prior.snr_points)} points done")
+    return prior
+
+
+def run_simulation(
+    opts: SimOptions,
+    code: LDPCCode | None = None,
+    device: str | torch.device | None = None,
+) -> SimulationResult:
+    """Full SNR sweep; returns a SimulationResult (``runner.py:1323-1402``).
+
+    Point ``i`` draws from ``derive_key(opts.seed, i)``, so a sweep resumed
+    from its checkpoint equals one that ran through. The results go to
+    ``opts.output_json`` / ``opts.output_csv`` when set. ``device=None``
+    means the card."""
+    opts = opts.resolved()
+    if opts.profile:
+        raise NotImplementedError(
+            "--profile: the port has no profiler trace of the sweep yet "
+            "(ROADMAP.md)")
+    device = resolve_device(device)
+    start_time = time.time()
+    if code is None:
+        code = load_code(opts.matrix)
+
+    say = (lambda *a, **kw: None) if opts.quiet else print
+    config = make_sim_config(opts, code, device)
+    prior = load_checkpoint(opts, config, say)
+    snr_points: list[SNRPointResult] = list(prior.snr_points) if prior else []
+
+    # the executor (GF(2) elimination, decoder tables) is built on demand: a
+    # checkpoint that already covers the whole sweep skips it
+    executor: PointExecutor | None = None
+
+    say("Processing blocks across SNR points...")
+    say("-" * 60)
+    for idx, snr in enumerate(
+        snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr)
+    ):
+        if idx < len(snr_points):
+            continue  # completed before resume
+        if executor is None:
+            executor = PointExecutor(code, opts, device=device)
+        say(f"\nSNR: {snr:.2f} dB")
+        t_point = time.time()
+        stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
+        point_s = time.time() - t_point
+        point = build_point_result(snr, stats, opts, executor.k_active)
+        snr_points.append(point)
+        if opts.normalized_llr:
+            say(f"  Normalized LLR: {point.avg_normalized_llr:.6f}")
+        if opts.fer:
+            say(f"  FER: {point.fer:.6f}")
+        if opts.ber:
+            say(f"  BER: {point.ber:.6f}")
+        say(
+            f"  Decoded OK: {point.successful_blocks}/{point.total_blocks} "
+            f"({100.0 * point.successful_blocks / max(point.total_blocks, 1):.2f}%)"
+        )
+        say(
+            f"  Throughput: {stats.blocks / point_s:,.0f} codewords/s "
+            f"({stats.blocks * code.k / point_s:,.0f} info bits/s)"
+        )
+        if opts.checkpoint:
+            SimulationResult(
+                config=config,
+                snr_points=snr_points,
+                wall_clock_seconds=time.time() - start_time,
+            ).to_json(opts.checkpoint)
+
+    say()
+    say("=" * 60)
+    if opts.ber:
+        say("SNR -> BER:")
+        for p in snr_points:
+            say(f"  {p.snr_db:.2f} dB -> {p.ber:.6f}")
+    if opts.fer:
+        say("SNR -> FER:")
+        for p in snr_points:
+            say(f"  {p.snr_db:.2f} dB -> {p.fer:.6f}")
+    if opts.normalized_llr:
+        say("SNR -> Normalized LLR:")
+        for p in snr_points:
+            say(f"  {p.snr_db:.2f} dB -> {p.avg_normalized_llr:.6f}")
+    say("=" * 60)
+
+    result = SimulationResult(
+        config=config,
+        snr_points=snr_points,
+        wall_clock_seconds=time.time() - start_time,
+    )
+    if opts.output_json:
+        result.to_json(opts.output_json)
+    if opts.output_csv:
+        result.to_csv(opts.output_csv)
+    return result

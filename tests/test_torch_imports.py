@@ -1,8 +1,9 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points default to the card."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+does ``chip_smoke.py``), and its entry points default to the card."""
 
 from __future__ import annotations
 
+import ast
 import os
 import subprocess
 import sys
@@ -32,13 +33,32 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 17  # every module of the port was imported
+    assert n_modules >= 22  # every module of the port was imported
+    for name in ("ops.qc_kernels", "ops.interleave", "ops.modem",
+                 "sim.results"):
+        assert os.path.isfile(os.path.join(
+            REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
+            name.split(".")[-1] + ".py"))
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """Parsed, not run: every import in the script, at any depth."""
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "ldpc_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "ldpc_tpu"}, sorted(roots)
 
 
 def test_entry_points_default_to_the_card():
     from ldpc_tpu_torch.ops.channel import ChannelParams
     from ldpc_tpu_torch.sim.config import SimOptions
-    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
     from ldpc_tpu_torch.utils.device import resolve_device
 
     code = load_code("builtin:wimax_576_0.5.alist.txt")
@@ -54,6 +74,8 @@ def test_entry_points_default_to_the_card():
         ChannelParams().consts()
     with pytest.raises(RuntimeError, match="CUDA"):
         PointExecutor(code, opts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_simulation(opts, code)
     assert PointExecutor(code, opts, device="cpu").device.type == "cpu"
 
 

@@ -176,3 +176,44 @@ def test_philox_raw_layout(mode):
         if mode == 2:
             assert int(r[6, 2 * p, z, b]) == x[3]
             assert int(r[6, 2 * p + 1, z, b]) == y[3]
+
+
+@pytest.mark.parametrize("name", ["wimax_576_0.5.alist.txt",
+                                  "wimax_1152_0.5.alist.txt"])
+def test_encoder_matches_reference(name):
+    code = JCode(alist=jstd.make_builtin(name), name=name)
+    spec = code.standard_encode_spec
+    u = np.random.default_rng(4).integers(0, 2, (128, code.k), dtype=np.uint8)
+    ref = np.asarray(jencode.make_encoder(spec, "orig")(jnp.asarray(u)))
+    port = tencode.make_encoder(spec, "orig", CPU)(torch.from_numpy(u))
+    assert port.dtype == torch.float32 and tuple(port.shape) == (128, code.n)
+    np.testing.assert_array_equal(port.numpy(), ref.astype(np.float32))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_block_stats_match_reference(exact):
+    from ldpc_tpu.ops.spa import DecodeResult as JResult
+    from ldpc_tpu_torch.ops.spa import DecodeResult as TResult
+
+    rng = np.random.default_rng(5)
+    B, n, k = 64, 96, 40
+    info = rng.permutation(n)[:k].astype(np.int64)
+    u = rng.integers(0, 2, (B, k), dtype=np.uint8)
+    est = rng.integers(0, 2, (B, n), dtype=np.uint8)
+    est[:B // 2, info] = u[:B // 2]  # half the frames decode their bits
+    ok = rng.random(B) < 0.6
+    conv = np.where(ok, rng.integers(0, 9, B), -1).astype(np.int32)
+    norm = rng.random(B).astype(np.float32)
+    ref = jmetrics.block_stats(
+        jnp.asarray(u), JResult(jnp.asarray(ok), jnp.asarray(est),
+                                jnp.asarray(conv), jnp.asarray(norm),
+                                jnp.int32(9)),
+        jnp.asarray(info.astype(np.int32)), exact=exact)
+    port = tmetrics.block_stats(
+        torch.from_numpy(u), TResult(torch.from_numpy(ok), torch.from_numpy(est),
+                                     torch.from_numpy(conv), torch.from_numpy(norm),
+                                     torch.tensor(9)),
+        torch.from_numpy(info), exact=exact)
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert port.error_bits.dtype == torch.int32

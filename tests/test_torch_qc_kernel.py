@@ -1,0 +1,139 @@
+"""The standalone QC decoder's plain version (``QCDecoder`` on the CPU)
+against the JAX package: the interpret-mode ``spa_pallas.make_qc_decoder``
+for what only the kernel has (paired layers with a syndrome check every two
+sweeps, and ``skip``), the jnp layered decoder for the layered schedule with
+the flip metric, and the kernel's block plans."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ldpc_tpu.models import standards as jstd
+from ldpc_tpu.models.code import LDPCCode as JCode
+from ldpc_tpu.models.qc import paired_layer_groups
+from ldpc_tpu.ops.layered import make_qc_layered_decoder
+from ldpc_tpu.ops.spa_pallas import make_qc_decoder
+from ldpc_tpu_torch.ops.decode_loop import build_tables
+from ldpc_tpu_torch.ops.mc_kernels import block_plan, smem_bytes
+from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
+from ldpc_tpu_torch.utils.carry import code_from_numpy
+
+torch.set_num_threads(1)
+
+ITU = "LDPC_N336_K196_ITU_G.h.alist.txt"
+WIMAX = "wimax_576_0.5.alist.txt"
+B = 128
+
+
+def _case(name: str, ebno_db: float, seed: int):
+    ref = JCode(alist=jstd.make_builtin(name), name=name)
+    port = code_from_numpy(ref.n, ref.m, ref.H.row_idx, ref.H.col_idx, name)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (B, ref.k), dtype=np.uint8)
+    w = ref.standard_encode_spec.encode_numpy(u, "orig").astype(np.float64)
+    sigma = 1.0 / np.sqrt(2 * ref.k / ref.n * 10 ** (ebno_db / 10))
+    llr = (2 * ((2 * w - 1) + sigma * rng.standard_normal(w.shape))
+           / sigma**2).astype(np.float32)
+    return ref, port, llr
+
+
+def _np(res):
+    return [np.asarray(x) for x in (res.est, res.ok, res.conv_iter,
+                                    res.norm_llr)] + [int(res.iters_run)]
+
+
+def test_paired_ce2_and_skip_match_the_interpret_mode_kernel():
+    ref, port, llr = _case(ITU, 2.0, 1)
+    groups = paired_layer_groups(ref.qc)
+    info = ref.standard_encode_spec.info_pos("orig")
+    kw = dict(schedule="layered", track_norm=False, layer_groups=groups,
+              check_every=2)
+    jdec = jax.jit(make_qc_decoder(ref.qc, info, 12, "minsum",
+                                   interpret=True, **kw))
+    tdec = QCDecoder(port.qc, port.standard_encode_spec.info_pos("orig"), 12,
+                     "minsum", **kw)
+    x = torch.from_numpy(llr)
+    for skip in (0, 1):
+        r = _np(jdec(jnp.asarray(llr), jnp.int32(skip)))
+        o = _np(tdec(x, skip=skip))
+        for what, a, b in zip(("est", "ok", "conv", "norm", "iters"), o, r):
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} skip={skip}")
+        if skip:
+            # every lane pre-marked done: no sweep, decisions from the LLRs
+            assert o[4] == 0 and o[1].all() and (o[2] == -1).all()
+            np.testing.assert_array_equal(o[0], (llr > 0).astype(np.uint8))
+        else:
+            assert 0 < o[1].sum() < B and ((o[2][o[1]] % 2) == 1).all()
+
+
+@pytest.mark.parametrize("variant", ["normalized_minsum", "offset_minsum"])
+def test_layered_with_flip_metric_matches_reference(variant):
+    """The layered sweep against the jnp layered decoder, with the
+    normalized-LLR metric (not part of the fused kernels) on."""
+    ref, port, llr = _case(WIMAX, 1.5, 2)
+    info = ref.standard_encode_spec.info_pos("orig")
+    r = _np(make_qc_layered_decoder(ref.qc, info, 8, variant)(jnp.asarray(llr)))
+    o = _np(QCDecoder(port.qc, port.standard_encode_spec.info_pos("orig"), 8,
+                      variant, schedule="layered", track_norm=True)(
+        torch.from_numpy(llr)))
+    for what, i in (("est", 0), ("ok", 1), ("conv", 2), ("iters", 4)):
+        np.testing.assert_array_equal(o[i], r[i], err_msg=what)
+    np.testing.assert_allclose(o[3], r[3], rtol=0, atol=1e-6)
+    assert 0 < o[1].sum() < B and (o[3] > 0).any()
+
+
+def test_block_plans_and_options():
+    code = code_from_numpy(*_dims("wimax_1152_0.5.alist.txt"))
+    t = build_tables(code.qc)
+    # flooding keeps the channel LLRs beside L and E: 8 codewords still fit
+    assert block_plan(t, flood=True) == (8, 2)
+    assert block_plan(t) == (8, 1)
+    assert smem_bytes(t, 8, flood=True) - smem_bytes(t, 8) == \
+        4 * (8 * code.n + (code.qc.nb + 1) + 2 * t.e_slots - len(t.groups) * 2)
+    info = code.standard_encode_spec.info_pos("orig")
+    with pytest.raises(ValueError, match="track_norm"):
+        QCDecoder(code.qc, info, 12, "spa", schedule="layered", check_every=2)
+    with pytest.raises(ValueError, match="layer_groups"):
+        QCDecoder(code.qc, info, 12, "spa", layer_groups=[[0]])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        QCDecoder(code.qc, info, 12, "minsum", msg_store="int8")
+    dec = QCDecoder(code.qc, info, 4, "spa", track_norm=False)
+    x = torch.zeros((code.n, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dec(x)
+    empty = dec(torch.zeros((0, code.n)))
+    assert tuple(empty.est.shape) == (0, code.n) and int(empty.iters_run) == 0
+
+
+def test_big_codes_fit_or_raise_with_their_bytes():
+    import os
+
+    from ldpc_tpu_torch.models.alist import read_alist
+    from ldpc_tpu_torch.models.qc import detect_qc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, flood_plan in (("wimax_like_n4608_z192.alist.txt", (2, 2)),
+                             ("wimax_like_n9216_z384.alist.txt", (1, 2))):
+        qc = detect_qc(read_alist(os.path.join(root, "examples", "big_code",
+                                               name)))
+        assert block_plan(build_tables(qc), flood=True) == flood_plan
+    huge = code_from_numpy(*_dims("wimax_2304_0.5.alist.txt"))
+    t = build_tables(huge.qc)
+    import ldpc_tpu_torch.ops.mc_kernels as mk
+
+    limit = mk._SMEM_LIMIT
+    try:
+        mk._SMEM_LIMIT = smem_bytes(t, 1, flood=True) - 1
+        with pytest.raises(ValueError, match=r"needs \d+ bytes"):
+            block_plan(t, flood=True)
+    finally:
+        mk._SMEM_LIMIT = limit
+
+
+def _dims(name):
+    ref = JCode(alist=jstd.make_builtin(name), name=name)
+    return ref.n, ref.m, ref.H.row_idx, ref.H.col_idx, name

@@ -106,12 +106,20 @@ def test_two_phase_settings_and_trip_model():
 
 
 def test_unported_options_are_refused():
+    """What the port does not run yet raises, naming ROADMAP.md: the legacy
+    rule and std graph of --fidelity reference, int8 extrinsics and the XLA
+    decoder. Flooding now runs the unfused QC path."""
     code = load_code(NAME)
-    for kw, what in ((dict(schedule="flooding"), "layered"),
-                     (dict(fidelity="reference"), "exact"),
-                     (dict(msg_store="int8"), "int8")):
+    for kw, what in ((dict(fidelity="reference"), "legacy rule"),
+                     (dict(msg_store="int8"), "int8"),
+                     (dict(kernel="xla"), "xla")):
         opts = dict(matrix=code.name, iterations=12, fidelity="exact",
                     batch=B, schedule="layered")
         opts.update(kw)
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(NotImplementedError, match=what) as e:
             PointExecutor(code, SimOptions(**opts), device="cpu")
+        assert "ROADMAP.md" in str(e.value)
+    ex = PointExecutor(code, SimOptions(matrix=code.name, iterations=12,
+                                        fidelity="exact", batch=B,
+                                        schedule="flooding"), device="cpu")
+    assert not ex.fused and ex.kernel_used == "cpu"

@@ -1,0 +1,254 @@
+"""The unfused path of the port on the CPU: the slice as a whole against the
+JAX package's chain on the same inputs, the decoder choice for each
+configuration, the SNR sweep with checkpoint and resume, the result files,
+and the FER of the 16-QAM burst configuration on both sides of its
+waterfall."""
+
+from __future__ import annotations
+
+import csv
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ldpc_tpu.models import standards as jstd
+from ldpc_tpu.models.code import LDPCCode as JCode
+from ldpc_tpu.models.generate import gallager_regular
+from ldpc_tpu.ops import encode as jencode
+from ldpc_tpu.ops import metrics as jmetrics
+from ldpc_tpu.ops.spa import make_decoder
+from ldpc_tpu.sim import results as jresults
+from ldpc_tpu.sim import runner as jrunner
+from ldpc_tpu_torch.sim import runner as trunner
+from ldpc_tpu_torch.sim.config import SimOptions
+from ldpc_tpu_torch.sim.results import SimulationResult
+from ldpc_tpu_torch.sim.runner import (
+    PointExecutor,
+    load_code,
+    run_simulation,
+    snr_steps,
+)
+from ldpc_tpu_torch.utils.carry import code_from_numpy
+
+torch.set_num_threads(1)
+
+W576 = "wimax_576_0.5.alist.txt"
+B = 256
+
+
+def _opts(**kw):
+    base = dict(matrix=f"builtin:{W576}", fidelity="exact", batch=B, seed=1,
+                speed=0.5, quiet=True)
+    base.update(kw)
+    return SimOptions(**base)
+
+
+@pytest.mark.parametrize("normalized_llr", [False, True])
+def test_slice_matches_the_reference_chain(normalized_llr):
+    """wimax 576, normalized min-sum, flooding, shorten 16, puncture 32:
+    the same info bits and the same channel LLRs through the JAX chain and
+    the port's executor step give the same packed counters."""
+    S, P, iters = 16, 32, 10
+    jcode = JCode(alist=jstd.make_builtin(W576), name=W576)
+    spec = jcode.standard_encode_spec
+    info = np.asarray(spec.info_pos("orig"), np.int64)
+    k, n = jcode.k, jcode.n
+    k_act = k - S
+    rng = np.random.default_rng(11)
+    u = rng.integers(0, 2, (B, k), dtype=np.uint8)
+    u[:, k_act:] = 0
+    w = np.asarray(jencode.make_encoder(spec, "orig")(jnp.asarray(u)),
+                   np.float64)
+    sigma = 1.0 / np.sqrt(2 * 0.5 * 10 ** (1.0 / 10))
+    llr = (2 * ((2 * w - 1) + sigma * rng.standard_normal(w.shape))
+           / sigma**2).astype(np.float32)
+
+    # the JAX chain (runner.py:480-497, 921-932)
+    parity = np.setdiff1d(np.arange(n), info)
+    punct = np.ones((1, n), np.float32)
+    punct[0, parity[n - k - P:]] = 0.0
+    short = np.zeros((1, n), np.float32)
+    short[0, info[k_act:]] = 1.0
+    x = jnp.asarray(llr) * punct
+    x = x * (1.0 - short) - 60.0 * short
+    res = make_decoder(jcode.layout("orig"), info[:k_act], iters,
+                       "normalized_minsum", rule="exact")(x)
+    if not normalized_llr:  # the runner's QC decoder skips the metric then
+        res = res._replace(norm_llr=jnp.zeros_like(res.norm_llr))
+    stats = jmetrics.block_stats(jnp.asarray(u[:, :k_act]), res,
+                                 jnp.asarray(info[:k_act].astype(np.int32)))
+    ref = np.asarray(jmetrics.pack_counters(
+        jmetrics.reduce_block_stats(stats, jnp.ones(B, bool)), res.iters_run))
+
+    code = load_code(f"builtin:{W576}")
+    ex = PointExecutor(code, _opts(
+        schedule="flooding", decoder="normalized-minsum", iterations=iters,
+        shorten=S, puncture=P, normalized_llr=normalized_llr), device="cpu")
+    assert not ex.fused and ex.kernel_used == "cpu" and ex.k_active == k_act
+    st, it = ex.step(0, ex.consts(1.0), u=torch.from_numpy(u),
+                     llr=torch.from_numpy(llr))
+    port = ex.packed(st, it, B).numpy()
+    assert 0 < ref[1] < B  # the point exercises both outcomes
+    if normalized_llr:
+        # the per-frame metrics agree to an ulp, their f32 sums to rounding
+        np.testing.assert_array_equal(port[:7], ref[:7])
+        np.testing.assert_allclose(port[7:].view(np.float32),
+                                   ref[7:].view(np.float32), rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(port, ref)
+
+
+@pytest.mark.parametrize("kw,fused,kind", [
+    (dict(schedule="flooding"), False, "cpu"),
+    (dict(schedule="layered", two_phase="off"), True, "cpu+fused+layered"),
+    (dict(schedule="layered", interleaver="random"), False, "cpu+layered"),
+    (dict(schedule="layered", modulation=16, mode=2), False, "cpu+layered"),
+    (dict(schedule="layered", shorten=8), False, "cpu+layered"),
+    (dict(schedule="layered", normalized_llr=True), False, "cpu+layered"),
+    (dict(schedule="layered", layer_order="paired", check_every=2,
+          fused="off"), False, "cpu+layered+paired+ce2"),
+    (dict(schedule="flooding", kernel="pallas", interleaver="regular"), False,
+     "cpu"),
+])
+def test_decoder_choice(kw, fused, kind):
+    ex = PointExecutor(load_code(f"builtin:{W576}"), _opts(iterations=4, **kw),
+                       device="cpu")
+    assert ex.fused == fused and ex.kernel_used == kind
+
+
+@pytest.mark.parametrize("kw,exc,what", [
+    (dict(kernel="xla"), NotImplementedError, "xla"),
+    (dict(fidelity="reference"), NotImplementedError, "legacy rule"),
+    (dict(check_rule="exact", fidelity="reference"), NotImplementedError,
+     "std graph"),
+    (dict(decoder="bitflipping"), NotImplementedError, "bit-flipping"),
+    (dict(msg_store="int8", decoder="minsum"), NotImplementedError, "int8"),
+    (dict(minsum_alpha=(0.7, 0.8), decoder="normalized-minsum"),
+     NotImplementedError, "alpha"),
+    (dict(fused="on"), ValueError, "flooding"),
+    (dict(modulation=16, fidelity="reference"), ValueError, "exact"),
+])
+def test_unported_or_invalid_configurations_raise(kw, exc, what):
+    opts = dict(schedule="flooding", iterations=4, interleaver="random")
+    opts.update(kw)
+    with pytest.raises(exc, match=what):
+        PointExecutor(load_code(f"builtin:{W576}"), _opts(**opts), device="cpu")
+
+
+def test_non_qc_code_and_profile_raise():
+    a = gallager_regular(48, 3, 6, seed=11)
+    code = code_from_numpy(a.n, a.m, a.row_idx, a.col_idx, "gallager48")
+    assert code.qc is None
+    with pytest.raises(NotImplementedError, match="quasi-cyclic"):
+        PointExecutor(code, _opts(iterations=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="profile"):
+        run_simulation(_opts(profile="trace"), device="cpu")
+
+
+def test_snr_steps_match_reference():
+    for grid in ((0.0, 5.0, 0.5), (1.0, 2.0, 0.3), (2.5, 2.5, 1.0),
+                 (0.1, 0.7, 0.2), (-1.0, 3.0, 1.5)):
+        assert snr_steps(*grid) == jrunner.snr_steps(*grid)
+    with pytest.raises(ValueError):
+        snr_steps(1.0, 0.0, 0.5)
+
+
+def _sweep_opts(tmp_path, **kw):
+    opts = dict(schedule="flooding", decoder="normalized-minsum",
+                iterations=8, blocks=B + 64, ber=True, fer=True,
+                initial_snr=0.5, end_snr=1.5, step_snr=0.5,
+                checkpoint=str(tmp_path / "ckpt.json"))
+    opts.update(kw)
+    return _opts(**opts)
+
+
+def _points(result):
+    return [(p.snr_db, p.ber, p.fer, p.total_blocks, p.successful_blocks,
+             p.avg_convergence_iterations) for p in result.snr_points]
+
+
+def test_sweep_resumed_after_one_point_equals_one_run(tmp_path, monkeypatch):
+    whole = run_simulation(_sweep_opts(tmp_path,
+                                       output_json=str(tmp_path / "r.json"),
+                                       output_csv=str(tmp_path / "r.csv")),
+                           device="cpu")
+    assert len(whole.snr_points) == 3
+    assert whole.config.device == "cpu:x1"
+
+    cut_dir = tmp_path / "cut"
+    cut_dir.mkdir()
+    real = PointExecutor.run_point
+
+    def run_point(self, snr_db, *a, **kw):
+        if snr_db > 0.5:
+            raise KeyboardInterrupt  # the sweep dies after its first point
+        return real(self, snr_db, *a, **kw)
+
+    monkeypatch.setattr(PointExecutor, "run_point", run_point)
+    with pytest.raises(KeyboardInterrupt):
+        run_simulation(_sweep_opts(cut_dir), device="cpu")
+    monkeypatch.setattr(PointExecutor, "run_point", real)
+    saved = SimulationResult.from_json(str(cut_dir / "ckpt.json"))
+    assert len(saved.snr_points) == 1
+    resumed = run_simulation(_sweep_opts(cut_dir, resume=True), device="cpu")
+    assert _points(resumed) == _points(whole)
+    # a checkpoint of another sweep is not resumed
+    other = run_simulation(_sweep_opts(cut_dir, resume=True, seed=2,
+                                       end_snr=0.5), device="cpu")
+    assert len(other.snr_points) == 1
+
+    # the files round-trip, with the JAX package's keys and columns
+    back = SimulationResult.from_json(str(tmp_path / "r.json"))
+    assert _points(back) == _points(whole) and back.config == whole.config
+    jres = jresults.SimulationResult(
+        config=jresults.SimulationConfig(**{
+            f: getattr(whole.config, f)
+            for f in jresults.SimulationConfig.__dataclass_fields__}),
+        snr_points=[jresults.SNRPointResult(**vars(p))
+                    for p in whole.snr_points],
+        wall_clock_seconds=whole.wall_clock_seconds)
+    jres.to_json(str(tmp_path / "j.json"))
+    jres.to_csv(str(tmp_path / "j.csv"))
+    mine = json.loads((tmp_path / "r.json").read_text())
+    theirs = json.loads((tmp_path / "j.json").read_text())
+    assert mine.keys() == theirs.keys()
+    assert mine["config"].keys() == theirs["config"].keys()
+    assert mine["snr_points"][0].keys() == theirs["snr_points"][0].keys()
+    with open(tmp_path / "r.csv") as f, open(tmp_path / "j.csv") as g:
+        rows, jrows = list(csv.reader(f)), list(csv.reader(g))
+    assert rows == jrows and len(rows) == 4
+
+
+def test_unfused_point_in_pieces_equals_one_run():
+    ex = PointExecutor(load_code(f"builtin:{W576}"),
+                       _opts(schedule="layered", interleaver="random",
+                             modulation=16, mode=2, p=0.15,
+                             interference_snr=-3.0, iterations=6),
+                       device="cpu")
+    whole = ex.run_point(5.0, 2 * B)
+    a = ex.run_point(5.0, B)
+    b = ex.run_point(5.0, B, start_batch=1)
+    for f in ("blocks", "ok_blocks", "error_bits", "fer_frames",
+              "conv_iters_sum", "conv_count"):
+        assert getattr(a, f) + getattr(b, f) == getattr(whole, f), f
+    assert ex.run_point(5.0, 2 * B) == whole  # same seed, same counters
+
+
+def test_burst_config_fer_is_sane_across_the_waterfall():
+    """16-QAM, mode-2 jamming (p 0.15, jammer 3 dB above the signal),
+    random interleaver, layered SPA-12 at wimax 576 (the burst-interleaver
+    study's configuration)."""
+    ex = PointExecutor(load_code(f"builtin:{W576}"),
+                       _opts(schedule="layered", interleaver="random",
+                             modulation=16, mode=2, p=0.15,
+                             interference_snr=-3.0, iterations=12),
+                       device="cpu")
+    assert ex.kernel_used == "cpu+layered"
+    high = ex.run_point(7.0, B)
+    low = ex.run_point(3.0, B)
+    assert high.fer_frames / high.blocks < 0.2
+    assert low.fer_frames / low.blocks > 0.5
+    assert trunner.derive_key(1, 0) != trunner.derive_key(1, 1)
