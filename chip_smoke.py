@@ -46,10 +46,13 @@ Phases:
    phase 1 of a split, ``llr_decoder`` on that phase 1's compacted output,
    each held against its plain version on the same inputs (the bars of
    phase 3), then timed with CUDA events beside its plain version and its
-   bound (the larger of its operations over 67 TFLOP/s f32 and its bytes
-   over 3.35 TB/s). The ``kernels`` line carries the single pass for
-   ``mc_decoder``; its ``max_abs_err`` is the largest error of phases 3
-   (main shapes) and 5.
+   bound: the larger of its operations over the card's issue peak (one f32
+   instruction per lane per clock, ``issue_peak_ops_per_s``) and its bytes
+   over 3.35 TB/s. The operations are the roofline census
+   (``analysis.roofline.decode_census`` / ``channel_census``) scaled by
+   each lane's sweeps through its converging check window. The ``kernels``
+   line carries the single pass for ``mc_decoder``; its ``max_abs_err`` is
+   the largest error of phases 3 (main shapes) and 5.
 6. K3 ``qc_decoder`` (the standalone QC decoder of the unfused path)
    against its plain version at wimax 1152, 4096 frames, on channel LLRs
    made on the card: flooding SPA-16 with the normalized-LLR metric on and
@@ -73,12 +76,26 @@ Phases:
    standard errors.
 9. K3 timed with CUDA events at 4096 frames (flooding SPA-16 at the phase-7
    flooding point, layered SPA-12 at the headline's 5.5 dB point) beside its
-   plain version and its bound (the larger of the data's operations over 67
-   TFLOP/s f32 and the LLRs in plus the decisions out over 3.35 TB/s).
-10. Only with ``--fer-batches N``: the FER at the headline point, single
+   plain version and its bound (the census of the data's sweeps over the
+   issue peak, and the LLRs in plus the decisions out over 3.35 TB/s).
+10. The roofline path (K4 ``rate_chain``, K5 ``mix_rate``): every K4 op
+   class against its plain version at depth 64 on the card full of
+   256-thread blocks (roll and prng bit for bit, the rest within rtol
+   1e-6); then, with the launch counts zeroed just before and read just
+   after, ``python -m ldpc_tpu_torch.scripts.roofline`` (the nine rates, the
+   trips at the bench point, both ceilings, the bench cut to 64 batches per
+   window) and ``...scripts.attainable_ceiling`` (the K5 stream ladder
+   1-16 at full occupancy and at K1's launch shape) into a temporary
+   directory; their reports checked (finite, the trip model's ``single``
+   equal to the readback, achieved below its ceiling, FER within 5 sigma);
+   every ladder entry against its plain version (rtol 1e-6); K4 (fma, depth
+   4096) and K5 (8 streams, 64 passes) timed beside their plain versions
+   and bounds (hot-loop SASS instructions at the issue peak). K1-K3's
+   "attainable ms" prices their census at the measured K5 rate.
+11. Only with ``--fer-batches N``: the FER at the headline point, single
    pass, paired and serial, with the in-kernel Philox noise and with words
    drawn by ``torch.randint``, N batches of 4096 frames each.
-11. One ``kernels`` JSON line, then the device line as the last line.
+12. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -97,9 +114,11 @@ SNR_DB = 2.0
 REF_FER = 0.0065  # BENCH_r04.json, paired + ce2, 2 dB (a code statistic)
 MAIN_BATCHES = 64
 PHASE1, ITERS, CHECK_EVERY = 6, 12, 2
-PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 SOURCE = "ldpc_tpu_torch/csrc/mc_decoder.cu"
+ROOFLINE_SOURCE = "ldpc_tpu_torch/csrc/roofline.cu"
+ROOF_BENCH_BATCHES = 64  # batches per window of the roofline path's bench
+COMPARE_DEPTH = 64  # K4 bodies when held against the plain version
+K4_TIME_DEPTH, K5_TIME_PASSES, K5_TIME_STREAMS = 4096, 64, 8
 W1152 = "builtin:wimax_1152_0.5.alist.txt"
 QC_BATCHES = 16  # batches of 4096 per point of the unfused runs
 FLOOD_BATCHES = 64
@@ -119,42 +138,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# ------------------------------------------------------------- op census ----
+# ---------------------------------------------------------------- bounds ----
 
-def check_ops(variant: str, d: int) -> int:
-    """f32 operations of one check update of degree ``d`` (one lane), each
-    compare, clip side, arithmetic op and transcendental counted once:
-    messages, leave-one-out combine, extrinsics and the posterior update."""
-    if variant == "spa":
-        # per edge: msg sub, *0.5, clip x2, tanh, clip x2 | clip x2, 1+p,
-        # 1-p, div, log | posterior add; products: 3 (d - 2) multiplies
-        return 14 * d + 3 * max(d - 2, 0)
-    # per edge: msg sub, sign (compare + select), abs | scale, sign mult,
-    # posterior add; sign products and minima: 6 (d - 2)
-    return 7 * d + 6 * max(d - 2, 0)
+def bound_ms(ops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time of ``ops`` census operations (one instruction each) at
+    the issue peak ``peak`` and ``nbytes`` at the HBM rate, and which binds."""
+    from ldpc_tpu_torch.analysis.roofline import HBM_BYTES_PER_S
 
-
-def decode_ops(qc, variant: str, sweeps, windows) -> float:
-    """Operations of the decode for per-lane sweep and window counts."""
-    degrees = [len(r) for r in qc.row_slots()]
-    per_sweep = qc.Z * sum(check_ops(variant, d) for d in degrees)
-    per_window = 2 * qc.Z * sum(degrees)  # syndrome: compare + xor per edge
-    return float(per_sweep * sweeps.sum() + per_window * windows.sum())
-
-
-CHANNEL_OPS_PER_BIT = 16  # Box-Muller (shared by a column pair) + BPSK LLR
-ERROR_OPS_PER_INFO_BIT = 3  # decision, compare, add
-
-
-def lane_sweeps(ok, conv, max_it: int):
-    """Sweeps a lane's data needs: through its converging window, or all."""
-    import numpy as np
-
-    return np.where(ok, conv.astype(np.int64) + 1, max_it)
-
-
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -622,10 +613,12 @@ def phase_unfused(dev):
     return head_launches, head_batches
 
 
-def phase_qc_timing(kept):
+def phase_qc_timing(kept, peak: float):
     """Phase 9: K3 timed at 4096 frames beside its plain version and its
-    bound. Returns {case: (ms, plain ms, bound ms, bound by)}."""
+    bound. Returns {case: (ms, plain ms, bound ms, bound by, census ops)}."""
     import numpy as np
+
+    from ldpc_tpu_torch.analysis.roofline import decode_work, init_census, lane_sweeps
 
     out = {}
     for tag, variant_iters in (("flooding spa-16", 16),
@@ -634,15 +627,211 @@ def phase_qc_timing(kept):
         qc = dec.qc
         B, n = llr.shape
         sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), variant_iters)
-        ops = decode_ops(qc, dec.variant, sw, sw // dec.check_every)
-        bound, by = bound_ms(ops, 4 * n * B + n * B + 13 * B)
+        ops = (decode_work(qc, dec.variant, dec.schedule, sweeps=sw,
+                           check_every=dec.check_every,
+                           track_norm=dec.track_norm)
+               + B * init_census(qc).total())
+        bound, by = bound_ms(ops, 4 * n * B + n * B + 13 * B, peak)
         ms = time_ms(lambda: dec.outputs(llr), reps=20)
         plain = time_ms(lambda: dec.plain_outputs(llr), reps=2, warm=1)
         log(f"timing qc_decoder {tag} (B={B}): {ms:.4f} ms (plain {plain:.3f} "
-            f"ms, bound {bound:.5f} ms by {by}, {int(np.sum(sw))} lane sweeps, "
-            f"lanes per block {dec.kernel_lanes})")
-        out[tag] = (ms, plain, bound, by)
+            f"ms, bound {bound:.5f} ms by {by}, {ops:.6g} census ops, "
+            f"{int(np.sum(sw))} lane sweeps, lanes per block {dec.kernel_lanes})")
+        out[tag] = (ms, plain, bound, by, ops)
     return out
+
+
+# -------------------------------------------------------------- K4 and K5 ----
+
+def hold_close(tag: str, kern, plain, exact: bool) -> float:
+    """A probe's tile against its plain version's: bit for bit, or within
+    rtol 1e-6. Returns the largest error."""
+    import torch
+
+    err = float((kern - plain).abs().max())
+    same = float((kern == plain).float().mean())
+    log(f"  {tag}: max |err| {err:.3g}, bit-equal share {same:.6f}")
+    if not torch.isfinite(kern).all():
+        fail(f"{tag} gave non-finite values")
+    if exact and not torch.equal(kern, plain):
+        fail(f"{tag} differs from its plain version")
+    if not torch.allclose(kern, plain, rtol=1e-6, atol=0.0):
+        fail(f"{tag} outside rtol 1e-6 of its plain version")
+    return err
+
+
+def phase_roofline(dev, smi: str, peak: float) -> dict:
+    """Phase 10: K4 and K5 held and timed, and the roofline path through its
+    two entry points. Returns the two kernels-line entries and the K5
+    attainable census rate."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldpc_tpu_torch.analysis.roofline import (
+        CLASSES,
+        _mix_schedule,
+        full_occupancy_launch,
+    )
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.rate_kernels import (
+        MIX_KERNEL,
+        OPS,
+        OPS_PER_BODY,
+        RATE_KERNEL,
+        MixChain,
+        RateChain,
+        instructions_per_body,
+        library_loop_instructions,
+    )
+    from ldpc_tpu_torch.scripts import attainable_ceiling, roofline
+
+    blocks, threads = full_occupancy_launch(dev)
+    gen = np.random.default_rng(5)
+
+    def tile(launch):
+        n = launch[0] * launch[1]
+        return torch.from_numpy(gen.random((32, n // 32)).astype(np.float32)).to(dev)
+
+    x = tile((blocks, threads))
+    per_body = instructions_per_body(library_loop_instructions("roofline"))
+    log("rate_chain hot-loop SASS instructions per body: "
+        + ", ".join(f"{op} {per_body[op]:g}" for op in OPS))
+    log(f"compare rate_chain (depth {COMPARE_DEPTH}, {blocks} blocks of "
+        f"{threads}):")
+    k4_err = 0.0
+    for op in OPS:
+        chain = RateChain(op, COMPARE_DEPTH)
+        kern = chain(x)
+        sync()
+        k4_err = max(k4_err, hold_close(f"rate_chain {op}", kern, chain.plain(x),
+                                        op in ("roll", "prng")))
+
+    # ---- the roofline path, through its entry points ----
+    out = Path(tempfile.mkdtemp(prefix="roofline-"))
+    try:
+        for k in (RATE_KERNEL, MIX_KERNEL, MC_KERNEL, LLR_KERNEL):
+            k.launches = 0
+        t0 = time.perf_counter()
+        rc = roofline.main(["--bench-batches", str(ROOF_BENCH_BATCHES),
+                            "--out", str(out)])
+        rc = rc or attainable_ceiling.main(["--out", str(out)])
+        sync()
+        elapsed = time.perf_counter() - t0
+        launches = {"rate_chain": RATE_KERNEL.launches,
+                    "mix_rate": MIX_KERNEL.launches,
+                    "mc_decoder": MC_KERNEL.launches,
+                    "llr_decoder": LLR_KERNEL.launches}
+        if rc:
+            fail(f"the roofline path exited {rc}")
+        roof = json.loads((out / "roofline.json").read_text())
+        att = json.loads((out / "attainable.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"roofline path: {elapsed:.1f} s, launches {launches}")
+    for name in ("rate_chain", "mix_rate", "mc_decoder"):
+        if launches[name] < 1:
+            fail(f"{name} was not launched on the roofline path")
+
+    # ---- its reports ----
+    rates = {c: 1e9 * roof["measured_floor_gops"][c] for c in CLASSES}
+    numbers = [*rates.values(), roof["ceiling_info_bits_per_s"],
+               roof["floor_info_bits_per_s"],
+               roof["single_pass_ceiling_info_bits_per_s"],
+               roof["two_phase_ceiling_info_bits_per_s"],
+               att["attainable_info_bits_per_s"],
+               att["attainable_k1_launch_info_bits_per_s"]]
+    if not all(math.isfinite(v) and v > 0 for v in numbers):
+        fail(f"the roofline reports hold a value that is not finite and > 0: {numbers}")
+    for c in CLASSES:
+        log(f"rate {c:7s} {rates[c]:.6g} census ops/s ({smi})")
+    for shape, key in (("full occupancy", "streams_ladder"),
+                       ("K1's launch shape", "streams_ladder_k1_launch")):
+        for s, r in att[key].items():
+            log(f"ladder {shape} {r['launch'][0]}x{r['launch'][1]} "
+                f"({r['blocks_per_sm']} blocks/SM) streams {s}: "
+                f"{r['census_ops_per_s']:.6g} census ops/s ({smi})")
+    if abs(roof["mean_tile_iters"] - roof["trip_model"]["single"]) > 1e-9:
+        fail(f"block trips {roof['mean_tile_iters']} differ from the trip "
+             f"model's {roof['trip_model']['single']}")
+    frames = 3 * ROOF_BENCH_BATCHES * BATCH
+    sigma = math.sqrt(REF_FER * (1 - REF_FER) / frames)
+    achieved = roof["achieved_info_bits_per_s"]
+    log(f"roofline at the bench point ({smi}): kernel {roof['kernel']}, "
+        f"single-pass ceiling {roof['single_pass_ceiling_info_bits_per_s']:.6g}, "
+        f"two-phase ceiling {roof['two_phase_ceiling_info_bits_per_s']:.6g}, "
+        f"measured-floor bound {roof['floor_info_bits_per_s']:.6g}, attainable "
+        f"{att['attainable_info_bits_per_s']:.6g} (at K1's launch shape "
+        f"{att['attainable_k1_launch_info_bits_per_s']:.6g}), achieved "
+        f"{achieved:.6g} info bits/s = {100 * roof['fraction_of_ceiling']:.3f}% "
+        f"of the ceiling, {100 * att['fraction_of_attainable']:.3f}% of "
+        f"attainable, {100 * achieved / roof['floor_info_bits_per_s']:.3f}% of "
+        f"the floor; FER {roof['fer']:.6f} (ref {REF_FER}, 5 sigma "
+        f"{5 * sigma:.6f}); issue peak {roof['issue_peak_ops_per_s']:.6g} op/s")
+    if not 0 < roof["fraction_of_ceiling"] < 1:
+        fail("the achieved rate is not below its ceiling")
+    if roof["floor_info_bits_per_s"] >= roof["ceiling_info_bits_per_s"]:
+        fail("the measured-floor bound is not below the issue-peak ceiling")
+    if abs(roof["fer"] - REF_FER) > 5 * sigma:
+        fail(f"roofline bench FER {roof['fer']:.6f} is more than 5 sigma from {REF_FER}")
+
+    # ---- every K5 ladder entry against its plain version ----
+    sched = _mix_schedule(att["frame_mix"])
+    mix_err = 0.0
+    log(f"compare mix_rate (schedule of {len(sched)} ops, 4 passes):")
+    for key in ("streams_ladder", "streams_ladder_k1_launch"):
+        for s, r in att[key].items():
+            xm = tile(r["launch"])
+            mix = MixChain(sched, int(s), 4, r["launch"][1])
+            kern = mix(xm)
+            sync()
+            mix_err = max(mix_err, hold_close(
+                f"mix_rate streams {s} {r['launch'][0]}x{r['launch'][1]}",
+                kern, mix.plain(xm), False))
+
+    # ---- K4 and K5 timed beside their plain versions and bounds ----
+    elems = x.numel()
+    chain = RateChain("fma", K4_TIME_DEPTH)
+    hold_close(f"rate_chain fma depth {K4_TIME_DEPTH}", chain(x), chain.plain(x), True)
+    k4_ms = time_ms(lambda: chain(x), reps=20)
+    k4_plain = time_ms(lambda: chain.plain(x), reps=2, warm=1)
+    # the bounds count the census ops a body retires (OPS_PER_BODY: fma is
+    # FMUL + FADD), not the static SASS of the hot loop, which holds the
+    # loop's counter and branch and paths that never run (cosf's slow path)
+    k4_bound, k4_by = bound_ms(elems * K4_TIME_DEPTH * OPS_PER_BODY["fma"],
+                               8 * elems, peak)
+    mix = MixChain(sched, K5_TIME_STREAMS, K5_TIME_PASSES, threads)
+    hold_close(f"mix_rate streams {K5_TIME_STREAMS} {K5_TIME_PASSES} passes",
+               mix(x), mix.plain(x), False)
+    per_pass = library_loop_instructions(("roofline", mix.defines))["mix_kernel"] / 2
+    k5_ms = time_ms(lambda: mix(x), reps=20)
+    k5_plain = time_ms(lambda: mix.plain(x), reps=2, warm=1)
+    retired = sum(OPS_PER_BODY[c] for c in sched)
+    k5_bound, k5_by = bound_ms(elems * K5_TIME_PASSES * retired, 8 * elems, peak)
+    log(f"timing ({smi}): rate_chain fma depth {K4_TIME_DEPTH} on {elems} "
+        f"elements {k4_ms:.5f} ms (plain {k4_plain:.3f} ms, bound "
+        f"{k4_bound:.5f} ms by {k4_by}); mix_rate {K5_TIME_STREAMS} streams "
+        f"{K5_TIME_PASSES} passes {k5_ms:.5f} ms (plain {k5_plain:.3f} ms, "
+        f"bound {k5_bound:.5f} ms by {k5_by} at {retired} retired census ops "
+        f"per pass of {len(sched)} schedule ops; {per_pass:g} static SASS "
+        f"instructions per pass)")
+    return {
+        "kernels": [
+            {"name": "rate_chain", "route": "cuda", "source": ROOFLINE_SOURCE,
+             "replaces": "ldpc_tpu/analysis/roofline.py:363",
+             "launches": launches["rate_chain"], "max_abs_err": k4_err,
+             "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
+             "bound_by": k4_by, "library_ms": None},
+            {"name": "mix_rate", "route": "cuda", "source": ROOFLINE_SOURCE,
+             "replaces": "ldpc_tpu/analysis/roofline.py:544",
+             "launches": launches["mix_rate"], "max_abs_err": mix_err,
+             "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+             "bound_by": k5_by, "library_ms": None},
+        ],
+        "attainable_census_ops_per_s": att["attainable_census_ops_per_s"],
+    }
 
 
 # ----------------------------------------------------------------- phases ----
@@ -668,6 +857,14 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from ldpc_tpu_torch.analysis.roofline import (
+        channel_census,
+        counter_census,
+        decode_work,
+        init_census,
+        issue_peak_ops_per_s,
+        lane_sweeps,
+    )
     from ldpc_tpu_torch.models.qc import paired_layer_groups
     from ldpc_tpu_torch.ops import build
     from ldpc_tpu_torch.ops.channel import ChannelParams
@@ -687,6 +884,9 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}")
 
     # ---- 2. build ----
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout
+    log(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
     built = build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s "
@@ -695,6 +895,9 @@ def main(argv=None) -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    peak = issue_peak_ops_per_s()
+    log(f"issue peak {peak:.6g} op/s (one f32 instruction per lane per clock; "
+        f"{smi})")
 
     # ---- 3. kernels against their plain versions ----
     code = load_code("builtin:wimax_1152_0.5.alist.txt")
@@ -793,22 +996,29 @@ def main(argv=None) -> int:
     errs = {"mc_decoder": max(errs["mc_decoder"], e_full, e1),
             "llr_decoder": max(errs["llr_decoder"], e2)}
 
+    # census ops the data needs: each lane's sweeps through its converging
+    # check window, the channel fill, counters and init per frame (K1; the
+    # emit copies n more), the init and counters per live lane (K2)
+    def loop_ops(sw):
+        return decode_work(code.qc, "spa", "layered", sweeps=sw,
+                           check_every=CHECK_EVERY)
+
     def mc_bound(o, max_it, emit):
         sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), max_it)
-        ops = (decode_ops(code.qc, "spa", sw, sw // CHECK_EVERY)
-               + BATCH * (n * CHANNEL_OPS_PER_BIT + k * ERROR_OPS_PER_INFO_BIT))
+        ops = loop_ops(sw) + BATCH * (channel_census(code.qc).total()
+                                      + (n if emit else 0))
         nbytes = 4 * n * BATCH * (2 if emit else 1) + 32 + 17 * BATCH
-        return bound_ms(ops, nbytes) + (int(sw.sum()),)
+        return bound_ms(ops, nbytes, peak) + (int(sw.sum()), ops)
 
-    b_full, by_full, sw_full = mc_bound(o_full, ITERS, False)
-    b1, by1, sw1 = mc_bound(o1, PHASE1, True)
+    b_full, by_full, sw_full, ops_full = mc_bound(o_full, ITERS, False)
+    b1, by1, sw1, ops1 = mc_bound(o1, PHASE1, True)
     active = done0.cpu().numpy() < 0.5
     sw2 = lane_sweeps(o2[1].cpu().numpy()[active], o2[2].cpu().numpy()[active],
                       ITERS)
-    ops2 = (decode_ops(code.qc, "spa", sw2, sw2 // CHECK_EVERY)
-            + active.sum() * k * ERROR_OPS_PER_INFO_BIT)
+    ops2 = loop_ops(sw2) + int(active.sum()) * (
+        init_census(code.qc) + counter_census(code.qc)).total()
     bytes2 = 4 * n * 2 * int(active.sum()) + 21 * BATCH  # llr + w of live lanes
-    b2, by2 = bound_ms(ops2, bytes2)
+    b2, by2 = bound_ms(ops2, bytes2, peak)
 
     t_full = time_ms(lambda: mc_full(wT, consts, seeds=key), reps=20)
     t_k1 = time_ms(lambda: mc1(wT, consts, seeds=key), reps=20)
@@ -817,12 +1027,13 @@ def main(argv=None) -> int:
                       warm=1)
     t_p1 = time_ms(lambda: mc1.plain(wT, consts, seeds=key), reps=2, warm=1)
     t_p2 = time_ms(lambda: llr_dec.plain(llr_s, w_s, done0), reps=2, warm=1)
-    log(f"timing (spa, B=4096): mc_decoder 12 it {t_full:.4f} ms (plain "
-        f"{t_pfull:.3f} ms, bound {b_full:.5f} ms by {by_full}, {sw_full} lane "
-        f"sweeps); mc_decoder phase 1 {t_k1:.4f} ms (plain {t_p1:.3f} ms, "
-        f"bound {b1:.5f} ms by {by1}, {sw1} lane sweeps); llr_decoder "
-        f"{t_k2:.4f} ms (plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, "
-        f"{int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
+    log(f"timing (spa, B=4096; {smi}): mc_decoder 12 it {t_full:.4f} ms "
+        f"(plain {t_pfull:.3f} ms, bound {b_full:.5f} ms by {by_full}, "
+        f"{ops_full:.6g} census ops, {sw_full} lane sweeps); mc_decoder phase 1 "
+        f"{t_k1:.4f} ms (plain {t_p1:.3f} ms, bound {b1:.5f} ms by {by1}, "
+        f"{ops1:.6g} census ops, {sw1} lane sweeps); llr_decoder {t_k2:.4f} ms "
+        f"(plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, {ops2:.6g} census "
+        f"ops, {int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
 
     # ---- 6-9. K3 and the unfused path ----
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
@@ -830,9 +1041,20 @@ def main(argv=None) -> int:
     QC_KERNEL.launches = 0
     qc_err, kept = phase_qc_compare(dev)
     qc_launches, qc_batches = phase_unfused(dev)
-    qc_times = phase_qc_timing(kept)
+    qc_times = phase_qc_timing(kept, peak)
     log(f"qc_decoder launches per batch on the headline run: "
         f"{qc_launches / qc_batches:g}")
+
+    # ---- 10. the roofline path (K4, K5) ----
+    roof = phase_roofline(dev, smi, peak)
+    rate = roof["attainable_census_ops_per_s"]
+    log(f"attainable ms at the K5 rate {rate:.6g} census ops/s ({smi}): "
+        f"mc_decoder 12 it {1e3 * ops_full / rate:.5f} (bound {b_full:.5f}, "
+        f"{t_full:.4f} ms); mc_decoder phase 1 {1e3 * ops1 / rate:.5f} (bound "
+        f"{b1:.5f}, {t_k1:.4f} ms); llr_decoder {1e3 * ops2 / rate:.5f} (bound "
+        f"{b2:.5f}, {t_k2:.4f} ms); "
+        + "; ".join(f"qc_decoder {tag} {1e3 * v[4] / rate:.5f} (bound "
+                    f"{v[2]:.5f}, {v[0]:.4f} ms)" for tag, v in qc_times.items()))
 
     if args.fer_batches:
         phase_fer(args.fer_batches)
@@ -856,6 +1078,7 @@ def main(argv=None) -> int:
          "bound_ms": qc_times["layered spa-12 serial (16-QAM)"][2],
          "bound_by": qc_times["layered spa-12 serial (16-QAM)"][3],
          "library_ms": None},
+        *roof["kernels"],
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,12 @@ other windows, FER, the dispatch choice, the card's name and its power limit
 go to stderr, and after the timed windows a ``torch.profiler`` trace of 16
 batches gives the device's busy and idle share and its time by kernel
 (:func:`device_breakdown`). Prints ONE JSON line on stdout.
+
+``--roofline PATH`` reads a ``roofline.json`` of ``python -m
+ldpc_tpu_torch.scripts.roofline`` and adds ``pct_of_ceiling`` to the stderr
+line when that report priced this run's dispatch mode and syndrome cadence
+(:func:`matching_ceiling`, the JAX bench's rule, ``bench.py:169-206``); else
+it says why it omits it. The stdout line keeps its keys.
 """
 
 from __future__ import annotations
@@ -95,6 +101,24 @@ def device_breakdown(executor, snr_db, *, batch, n_batches=16, key=7777):
     return span / 1e3, busy / 1e3, top
 
 
+def matching_ceiling(roof: dict, kernel_used: str,
+                     check_every: int) -> tuple[float | None, str]:
+    """(ceiling info bits/s, "") when ``roof`` prices this run, else
+    (None, why). A two-phase op stream has its own ceiling, and the syndrome
+    cadence changes the ops per sweep, so both must match; the layer order
+    only reorders the same ops."""
+    from ldpc_tpu_torch.scripts.roofline import TWO_PHASE_RAN
+
+    used_two_phase = bool(TWO_PHASE_RAN.search(kernel_used))
+    if roof.get("two_phase_ceiling", False) != used_two_phase:
+        return None, (f"roofline.json prices kernel={roof.get('kernel')!r} "
+                      f"but this run used {kernel_used!r}")
+    if roof.get("check_every", 1) != check_every:
+        return None, (f"roofline.json prices check_every="
+                      f"{roof.get('check_every', 1)}, this run {check_every}")
+    return roof["ceiling_info_bits_per_s"], ""
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -110,6 +134,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=320,
                     help="batches of 4096 frames per timed window")
     ap.add_argument("--windows", type=int, default=5)
+    ap.add_argument("--roofline", metavar="PATH",
+                    help="roofline.json to quote pct_of_ceiling from")
     args = ap.parse_args(argv)
 
     import torch
@@ -135,13 +161,23 @@ def main(argv=None) -> int:
     codewords = args.batches * batch
     info_bits = codewords * code.k
     rates = [info_bits / t for t in window_times]
+    sol = ""
+    if args.roofline:
+        with open(args.roofline, encoding="utf-8") as f:
+            ceiling, why = matching_ceiling(json.load(f), executor.kernel_used,
+                                            opts.check_every)
+        if ceiling:
+            sol = f" pct_of_ceiling={100 * bits_per_s / ceiling:.2f}%"
+        else:
+            print(f"# {why}; omitting pct_of_ceiling (re-run python -m "
+                  "ldpc_tpu_torch.scripts.roofline)", file=sys.stderr)
     print(
         f"# code={code.name} n={code.n} k={code.k} batch={batch} "
         f"kernel={executor.kernel_used} codewords/window={codewords} "
         f"median_window={elapsed:.4f}s windows_s={window_times} "
         f"bits/s min/med/max={min(rates):.6g}/{bits_per_s:.6g}/{max(rates):.6g} "
         f"FER@2dB={fer:.6f} probe={executor.last_probe} "
-        f"card={card_line()!r}",
+        f"card={card_line()!r}{sol}",
         file=sys.stderr,
     )
     span, busy, top = device_breakdown(executor, 2.0, batch=batch)

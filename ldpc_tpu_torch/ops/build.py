@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
-directory ``.gitignore`` lists); the hash covers the source and the flags,
-so an edited source builds anew. Nothing is compiled when a module is
-imported: the first launch builds, or :func:`build_all` does it up front
-(one ``nvcc`` per source, all started together).
+directory ``.gitignore`` lists); the hash covers the source, the flags and
+the library's own ``-D`` defines, so an edited source builds anew and one
+source can give several libraries (K5's schedule is baked in by defines).
+Nothing is compiled when a module is imported: the first launch builds, or
+:func:`build_all` does it up front (one ``nvcc`` per library, all started
+together). A library is named by its source, or by ``(source, defines)``.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs, so the
 kernels round exactly as their plain PyTorch versions do, op by op.
@@ -24,11 +26,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
-SOURCES = ("mc_decoder",)
+SOURCES = ("mc_decoder", "roofline")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -49,81 +51,101 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _spec(lib) -> tuple[str, tuple[str, ...]]:
+    """``name`` or ``(name, defines)`` -> ``(name, defines)``."""
+    return (lib, ()) if isinstance(lib, str) else (lib[0], tuple(lib[1]))
+
+
+def library_label(lib) -> str:
+    name, defines = _spec(lib)
+    return f"{name}[{' '.join(defines)}]" if defines else name
+
+
+def _flags(defines) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(lib) -> Path:
+    name, defines = _spec(lib)
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES, verbose: bool = False) -> dict[str, dict]:
-    """Compile every source that has no current library, in parallel.
+def build_all(libs=SOURCES, verbose: bool = False) -> dict[str, dict]:
+    """Compile every library that is not built yet, in parallel.
 
-    Returns ``{name: {"seconds": t, "log": compiler output}}`` for the
-    sources built now (``verbose`` adds ``-Xptxas -v``: registers, shared
+    Returns ``{label: {"seconds": t, "log": compiler output}}`` for the
+    libraries built now (``verbose`` adds ``-Xptxas -v``: registers, shared
     memory and spills per kernel). Raises with the compiler's output if a
     build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for lib in libs:
+        name, defines = _spec(lib)
+        out = library_path(lib)
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc, *_flags(defines), *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        procs[library_label(lib)] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            tmp, out, time.perf_counter())
     built = {}
-    for name, (proc, tmp, out, t0) in procs.items():
+    for label, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         os.replace(tmp, out)
-        built[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        built[label] = {"seconds": time.perf_counter() - t0, "log": log}
     return built
 
 
-def load(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        build_all((name,))
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return _LIBS[name]
+def load(lib) -> ctypes.CDLL:
+    key = _spec(lib)
+    if key not in _LIBS:
+        build_all((key,))
+        _LIBS[key] = ctypes.CDLL(str(library_path(key)))
+    return _LIBS[key]
 
 
 class Kernel:
     """One C launch function of a built library, with a launch count.
 
-    ``kernel(*args)`` calls the function, which launches on the stream it is
+    ``kernel(*args, defines=())`` calls the function in the library built
+    from ``library`` with those defines; it launches on the stream it is
     given and returns ``cudaGetLastError()``; a nonzero code raises.
-    ``launches`` counts successful calls; the wrappers never call with an
-    empty batch, so each is one launch."""
+    ``launches`` counts successful calls over every such library; the
+    wrappers never call with an empty batch, so each is one launch."""
 
     def __init__(self, library: str, symbol: str, argtypes: list):
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
-        self._fn = None
+        self._fns: dict[tuple, tuple] = {}
 
-    def _bind(self):
-        if self._fn is None:
-            lib = load(self.library)
+    def _bind(self, defines: tuple):
+        if defines not in self._fns:
+            lib = load((self.library, defines))
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err = lib.cuda_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
-        return self._fn
+            self._fns[defines] = (fn, err)
+        return self._fns[defines]
 
-    def __call__(self, *args) -> None:
-        rc = self._bind()(*args)
+    def __call__(self, *args, defines=()) -> None:
+        fn, err = self._bind(tuple(defines))
+        rc = fn(*args)
         if rc != 0:
             raise RuntimeError(
-                f"{self.symbol} failed: {self._err(rc).decode()} (cudaError {rc})"
+                f"{self.symbol} failed: {err(rc).decode()} (cudaError {rc})"
             )
         self.launches += 1

@@ -33,12 +33,16 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 22  # every module of the port was imported
+    assert n_modules >= 32  # every module of the port was imported
     for name in ("ops.qc_kernels", "ops.interleave", "ops.modem",
-                 "sim.results"):
+                 "sim.results", "analysis.__init__", "analysis.roofline",
+                 "ops.rate_kernels", "scripts.__init__", "scripts.roofline",
+                 "scripts.attainable_ceiling"):
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
             name.split(".")[-1] + ".py"))
+    assert os.path.isfile(os.path.join(REPO, "ldpc_tpu_torch", "csrc",
+                                       "roofline.cu"))
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -56,6 +60,11 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
 
 
 def test_entry_points_default_to_the_card():
+    from ldpc_tpu_torch.analysis.roofline import (
+        measure_mix_rate,
+        measure_rates,
+        measure_tile_trips,
+    )
     from ldpc_tpu_torch.ops.channel import ChannelParams
     from ldpc_tpu_torch.sim.config import SimOptions
     from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
@@ -76,6 +85,12 @@ def test_entry_points_default_to_the_card():
         PointExecutor(code, opts)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_simulation(opts, code)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_rates()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_mix_rate({"fma": 3.0, "tanh": 1.0})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_tile_trips(code, opts, 2.0)
     assert PointExecutor(code, opts, device="cpu").device.type == "cpu"
 
 
