@@ -10,7 +10,10 @@ Phases:
 
 1. CUDA present; the card's name and power limit (``nvidia-smi``).
 2. Build the kernels from ``ldpc_tpu_torch/csrc`` (one ``nvcc`` per source,
-   started together) and print the build time.
+   started together) and print the build time; then one line with the
+   registers, barriers and spill bytes ``ptxas`` reports for each of the 12
+   K1 / K2 instantiations (and one for K3's), failing if a DMAX=8 K1 / K2
+   instantiation spills.
 3. Hold each kernel against its plain version on the card, at the main
    path's shapes (WiMAX (1152, 576), 4096 frames, paired layers, a syndrome
    check every two sweeps), for normalized min-sum and SPA:
@@ -28,8 +31,11 @@ Phases:
    kernels that the main path does not run (``COVERAGE``): multi-diagonal
    layers (CCSDS), the 16 and 32 row-degree instantiations, min-sum and
    offset min-sum, channel modes 2 and 3, the QPSK proxy, serial layers,
-   check every 1 and 3, and 4, 2 and 1 codewords per block (the last two
-   from the big codes in ``examples/big_code``).
+   check every 1 and 3, and the block plans: 8 and 2 codewords sharing one
+   warp (Z=4), two such warps of 2 on named barriers (Z=16), padding
+   threads (48 and 27 threads per codeword), 2, 4 and 8 codewords on named
+   barriers (Z = 27, 96, 192 and the bench code), one codeword of 768
+   threads (n=9216).
 4. The main path: ``PointExecutor`` at the settings of the headline bench
    (layered SPA, 12 iterations, paired, check every 2) through
    ``run_point(2.0, ...)`` for 64 batches of 4096 frames, twice: with
@@ -52,7 +58,12 @@ Phases:
    (``analysis.roofline.decode_census`` / ``channel_census``) scaled by
    each lane's sweeps through its converging check window. The ``kernels``
    line carries the single pass for ``mc_decoder``; its ``max_abs_err`` is
-   the largest error of phases 3 (main shapes) and 5.
+   the largest error of phases 3 (main shapes) and 5. Then the block plans
+   of both kernels with their resident blocks per SM, and the block-plan
+   ladder (``scripts/block_plan_ladder.py``): K1 and K2 at 8, 4, 2 and 1
+   codewords per block on the same inputs, timed, with their block trips
+   and occupancy; every plan must give the same per-frame outputs and
+   ``iters`` equal to the block's largest trip count.
 6. K3 ``qc_decoder`` (the standalone QC decoder of the unfused path)
    against its plain version at wimax 1152, 4096 frames, on channel LLRs
    made on the card: flooding SPA-16 with the normalized-LLR metric on and
@@ -240,18 +251,23 @@ def hold_mc(tag: str, mc, dec, wT, consts, **noise):
 
 def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
               iters: int, phase1: int, check_every: int, mode: int = 1,
-              modulation: int = 1, raw=None):
+              modulation: int = 1, raw=None, lanes=None):
     """K1 (``phase1`` iterations, LLRs emitted) with injected words, when
     given, and with Philox noise; then K2 (``iters``) from K1's LLRs with
-    the pre-done mask ``done0``. Returns the largest error of each."""
+    the pre-done mask ``done0``; both at ``lanes`` codewords per block (None:
+    the default plan). Returns the largest error of each."""
     import torch
 
     from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
 
     info_pos = code.standard_encode_spec.info_pos("orig")
-    kw = dict(layer_groups=groups, check_every=check_every)
+    kw = dict(layer_groups=groups, check_every=check_every, lanes=lanes)
     mc = MCDecoder(code.qc, info_pos, phase1, variant, mode=mode,
                    modulation=modulation, emit_llr=True, **kw)
+    p = mc.plan
+    tag = (f"{tag} lanes {p.lanes} ({p.groups} barrier groups of "
+           f"{p.group_threads} threads, {p.cw_per_group} codewords each, "
+           f"{p.padding_threads} padding threads)")
     dec1 = LLRDecoder(code.qc, info_pos, phase1, variant, **kw)
     llr2 = LLRDecoder(code.qc, info_pos, iters, variant, **kw)
     out = {"mc_decoder": 0.0, "llr_decoder": 0.0}
@@ -274,29 +290,40 @@ def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
 # every code path of the kernels meets its plain version on the card:
 # (code, layer order, variant, channel mode, modulation, iterations, check
 # every, Eb/N0 dB chosen so that some frames converge in phase 1 and some
-# do not)
+# do not, codewords per block: None for the default plan)
 COVERAGE = [
-    # multi-diagonal layers (the additive update), kernel row degree 8
+    # multi-diagonal layers (the additive update), kernel row degree 8; Z=4:
+    # 8 codewords share one warp (the default plan), then 2 with 24 padding
+    # threads
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "normalized_minsum",
-     1, 1, 12, 2, 2.0),
+     1, 1, 12, 2, 2.0, None),
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "spa", 3, 2, 10, 1,
-     5.0),
+     5.0, 2),
     ("builtin:CCSDS_ldpc_n256_k128.alist.txt", "serial", "offset_minsum", 2,
-     1, 12, 2, 2.5),
-    # row degree 15 (the 16 instantiation), partial-band, QPSK proxy
+     1, 12, 2, 2.5, None),
+    # Z = 16: 2 codewords share a warp, 2 such warps on named barriers
+    ("builtin:CCSDS_ldpc_n128_k64.alist.txt", "serial", "normalized_minsum",
+     1, 1, 12, 2, 2.5, 4),
+    # row degree 15 (the 16 instantiation), partial-band, QPSK proxy; 48
+    # threads per codeword padded to 64
     ("builtin:wimax_1152_0.75A.alist.txt", "serial", "offset_minsum", 2, 2,
-     12, 2, 7.0),
-    # row degree 20 and 22 (the 32 instantiation)
+     12, 2, 7.0, None),
+    # row degree 20 (48 threads padded to 64) and 22 (the 32 instantiation;
+    # 27 threads padded to 32, 2 codewords on 2 named barriers)
     ("builtin:wimax_1152_0.83.alist.txt", "serial", "minsum", 3, 1, 12, 3,
-     3.5),
-    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5),
-    # 4, 2 and 1 codewords per block (Z = 96, 192, 384; paired)
+     3.5, None),
+    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5, 2),
+    # 4, 2 and 1 codewords per block at Z = 96, 192, 384 (paired): 768
+    # threads in 4, 2 and 1 barrier groups
     ("builtin:wimax_2304_0.66B.alist.txt", "paired", "normalized_minsum", 3,
-     2, 12, 2, 5.5),
+     2, 12, 2, 5.5, 4),
     ("examples/big_code/wimax_like_n4608_z192.alist.txt", "paired", "minsum",
-     1, 1, 12, 2, 2.0),
+     1, 1, 12, 2, 2.0, 2),
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "paired", "spa", 3,
-     2, 12, 2, 5.5),
+     2, 12, 2, 5.5, None),
+    # the bench code at 8 codewords per block (8 named barriers)
+    ("builtin:wimax_1152_0.5.alist.txt", "paired", "normalized_minsum", 1, 1,
+     12, 2, 2.0, 8),
 ]
 COVER_BATCH = 512
 
@@ -315,7 +342,7 @@ def phase_coverage(dev) -> float:
 
     worst = 0.0
     gen = np.random.default_rng(2)
-    for name, order, variant, mode, modulation, iters, ce, snr in COVERAGE:
+    for name, order, variant, mode, modulation, iters, ce, snr, lanes in COVERAGE:
         code = load_code(name if name.startswith("builtin:")
                          else str(ROOT / name))
         groups = paired_layer_groups(code.qc) if order == "paired" else None
@@ -330,11 +357,11 @@ def phase_coverage(dev) -> float:
                                noise_model="exact").consts(dev)
         done0 = torch.from_numpy(
             (gen.random(COVER_BATCH) < 0.5).astype(np.float32)).to(dev)
-        tag = (f"{code.name} {order} {variant} mode {mode} mod {modulation} "
-               f"ce{ce}")
-        out = hold_pair(tag, code, groups, variant, wT, consts, done0,
-                        iters=iters, phase1=iters // 2, check_every=ce,
-                        mode=mode, modulation=modulation, raw=raw)
+        out = hold_pair(f"{code.name} {order} {variant} mode {mode} mod "
+                        f"{modulation} ce{ce}", code, groups, variant, wT,
+                        consts, done0, iters=iters, phase1=iters // 2,
+                        check_every=ce, mode=mode, modulation=modulation,
+                        raw=raw, lanes=lanes)
         worst = max(worst, *out.values())
     return worst
 
@@ -379,6 +406,51 @@ def phase_fer(batches: int) -> None:
             se = math.sqrt(fer * (1 - fer) / frames)
             log(f"fer order={order} source={source} frames={frames} "
                 f"frame_errors={errors} FER={fer:.6f} se={se:.6f}")
+
+
+def phase_ptxas() -> dict:
+    """Registers and spill bytes of every K1 / K2 instantiation, from the
+    build's ``ptxas -v`` (K3's beside them); fails if a DMAX=8 one spills."""
+    from ldpc_tpu_torch.ops import build
+
+    rep = build.ptxas_report(build.ptxas_log("mc_decoder"))
+
+    def line(names):
+        return "; ".join(f"{k} {rep[k].get('registers')} registers, "
+                         f"{rep[k].get('barriers')} barriers, spill "
+                         f"stores {rep[k].get('spill_stores')} B, loads "
+                         f"{rep[k].get('spill_loads')} B, stack "
+                         f"{rep[k].get('stack')} B" for k in names)
+
+    fused = sorted(k for k in rep if k.startswith(("mc_decoder_kernel<",
+                                                   "llr_decoder_kernel<")))
+    log(f"ptxas K1/K2: {line(fused)}")
+    log(f"ptxas K3: {line(sorted(k for k in rep if k.startswith('qc_decoder_kernel<')))}")
+    if len(fused) != 12:  # K1, K2 x DMAX 8 / 16 / 32 x one or several groups
+        fail(f"expected 12 K1/K2 instantiations in the ptxas output, found {fused}")
+    for k in fused:
+        if k.split("<")[1].startswith("8,") and (
+                rep[k].get("spill_stores") or rep[k].get("spill_loads")):
+            fail(f"{k} spills: {rep[k]}")
+    return {k: rep[k] for k in fused}
+
+
+def phase_ladder(dev, smi: str) -> list:
+    """K1 and K2 at 8, 4, 2 and 1 codewords per block on the main path's
+    inputs (``scripts/block_plan_ladder.py``: per-frame outputs equal across
+    plans, ``iters`` the block's largest trip count)."""
+    from ldpc_tpu_torch.scripts.block_plan_ladder import ladder
+
+    rows = ladder(dev)
+    for r in rows:
+        log(f"ladder lanes {r['lanes']} ({smi}): mc_decoder 12 it "
+            f"{r['k1_ms']:.4f} ms, block trips {r['k1_block_trips']:.4f}, "
+            f"{r['k1_threads']} threads, {r['k1_smem']} B, "
+            f"{r['k1_blocks_per_sm']} blocks/SM; llr_decoder {r['k2_ms']:.4f} "
+            f"ms, block trips {r['k2_block_trips']:.4f}, live blocks "
+            f"{r['k2_live_blocks']}, {r['k2_blocks_per_sm']} blocks/SM; lane "
+            f"trips {r['lane_trips_mean']:.4f}")
+    return rows
 
 
 # ------------------------------------------------------------------- K3 ----
@@ -888,13 +960,10 @@ def main(argv=None) -> int:
                           text=True, timeout=60, check=True).stdout
     log(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    built = build.build_all(verbose=True)
+    built = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
-    for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas = phase_ptxas()
     peak = issue_peak_ops_per_s()
     log(f"issue peak {peak:.6g} op/s (one f32 instruction per lane per clock; "
         f"{smi})")
@@ -1034,6 +1103,10 @@ def main(argv=None) -> int:
         f"{ops1:.6g} census ops, {sw1} lane sweeps); llr_decoder {t_k2:.4f} ms "
         f"(plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, {ops2:.6g} census "
         f"ops, {int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
+    log(f"plans: mc_decoder {mc_full.plan} ({mc_full.blocks_per_sm(dev)} "
+        f"blocks/SM), llr_decoder {llr_dec.plan} ({llr_dec.blocks_per_sm(dev)} "
+        "blocks/SM)")
+    phase_ladder(dev, smi)
 
     # ---- 6-9. K3 and the unfused path ----
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL

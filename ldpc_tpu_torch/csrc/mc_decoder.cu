@@ -11,36 +11,66 @@
 //     the standalone decode of given channel LLRs (the unfused path): layered
 //     or flooding, hard decisions, ok, conv, the normalized-LLR flip metric;
 //   * ldpc_tpu/ops/spa_pallas.py make_decode_loop / make_check_update
-//     (:126-574) -> decode_block / flood_sweep / check_update, one __device__
-//     loop for all three.
+//     (:126-574) -> decode_group (K1, K2) and decode_block / flood_sweep
+//     (K3), sharing check_update and exclusive_combine.
 //
 // What bounds them: a codeword's decode is a chain of dependent steps (a
 // layer of the layered schedule, or the check then the posterior phase of a
 // flooding sweep), each a gather along Z, a leave-one-out combine (tanh/log
-// or min/sign) and a scatter, with a block barrier between steps. Device-
-// memory traffic is small (code bits or LLRs in; counters, decisions or
-// LLRs out), so of the two bounds operations bind; in practice the latency
-// of the step chain does, and the kernels run far above their operations
-// bound (PERF.md has both times).
+// or min/sign) and a scatter, with a barrier between steps. Device-memory
+// traffic is small (code bits or LLRs in; counters, decisions or LLRs out),
+// so of the two bounds operations bind. On the H100 K1 and K2 are bound by
+// instruction issue: SPA's tanhf / logf / division chains (about 5 issued
+// instructions per census op on the bench frame's mix, which the K5 probe
+// sustains at 6.9e12 census ops/s), with the step's shared-memory loads and
+// its barrier on the critical path; no matrix product, so wgmma and TMA do
+// not apply. What the card offers them: 227 KB of shared memory per block
+// (228 KB per SM), 64K registers per SM and 16 named barriers per block.
 //
-// Design: a block holds `lpb` codewords. The posteriors L [n][lpb] and the
-// extrinsics E [edge slots * Z][lpb] of its codewords live in shared memory
-// for the whole decode, so an iteration touches no device memory (flooding
-// also keeps the channel LLRs X there: every sweep restarts its posteriors
-// from them; the flip metric's previous posteriors, read once per check,
-// stay in device memory). Thread (r, z, lane) owns check row z of the r-th
-// row of every layer group (flooding: of base rows r, r+R, ...) for one
-// codeword: a roll along Z is an indexed shared-memory read, and in a
-// single-diagonal layer every posterior is read and written by exactly one
-// thread, so a layer needs no atomics; the rows of a paired group run in the
-// same step. Multi-diagonal layers stage their extrinsic deltas and apply
-// them per position after a barrier (the additive update of the reference).
-// A flooding sweep writes only E in its check phase and only L in its
-// posterior phase, with a barrier between. The block loops until all its
-// codewords are done or the budget is spent; `iters` is that trip count.
-// Every op is per codeword, so the other outputs do not depend on lpb. Built
-// with -fmad=false so each op rounds as the plain PyTorch version
-// (ldpc_tpu_torch/ops/decode_loop.py, mc_kernels.py, qc_kernels.py) does.
+// K1 / K2 design (PERF.md has the times of each point):
+//   1. Per-codeword progress. The decode runs codeword-major: a codeword's
+//      R*Z threads fill whole warps (padded to a multiple of 32), or, where
+//      R*Z < 32, up to 8 codewords share one warp; each such barrier group
+//      syncs on its own barrier (barrier 0 when the block is one group, a
+//      named barrier `bar.sync 1+g, n` otherwise) and leaves the loop on a
+//      warp-uniform test once its codewords pass the syndrome check (the
+//      test is a barrier reduction, bar.red.or, or a warp vote). The block
+//      plan (mc_kernels.py fused_plan) is one group per block: at the bench
+//      code one codeword of 96 threads, 8 blocks resident per SM, so a
+//      converged codeword frees its slot for the next block at once. `iters`
+//      is the block's trips, the max over its codewords.
+//   2. No spills. __launch_bounds__(768, 1), the largest block any plan
+//      launches, gives 80 registers a thread; the leave-one-out combine
+//      keeps its suffixes and one running prefix (2 x DMAX values, not 4),
+//      and the min-sum family folds signs to a parity and magnitudes to the
+//      two smallest (exact in any order, so bit-equal to exclusive_combine).
+//   3. Precomputed gathers. The L offset slot_col*Z + (z+shift) mod Z of
+//      every (edge slot, z) is a uint16 table built on the host and staged
+//      in shared memory; an edge reads one offset for its gather and again
+//      for its write-back, and the syndrome check reads the same table.
+//   4. Coalesced device memory. Loads and stores (channel fill, K2's LLR
+//      load, the error count) run lane-fastest: a warp reads lpb adjacent
+//      codewords of one row; L is padded per codeword so those lanes start
+//      in different banks.
+// Multi-diagonal layers (CCSDS) stage each edge's extrinsic delta at the
+// position it updates and add them per position after the group's barrier
+// (the additive update of the reference).
+//
+// K3 keeps the first design until its own redesign: a block holds `lpb`
+// codewords, L [n][lpb] and E [edge slots * Z][lpb] interleaved in shared
+// memory (flooding also keeps the channel LLRs X there; the flip metric's
+// previous posteriors stay in device memory), thread (r, z, lane) owns check
+// row z of the r-th row of every layer group (flooding: of base rows r,
+// r+R, ...), a block barrier between steps, and the block loops until all
+// its codewords are done (decode_block / flood_sweep).
+//
+// In both designs a roll along Z is an indexed shared-memory read, and in a
+// single-diagonal layer every posterior is read and written by one thread,
+// so a layer needs no atomics; the rows of a paired group run in the same
+// step. Every op is per codeword, so the outputs other than `iters` do not
+// depend on the plan. Built with -fmad=false so each op rounds as the plain
+// PyTorch version (ldpc_tpu_torch/ops/decode_loop.py, mc_kernels.py,
+// qc_kernels.py) does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,11 +105,21 @@ struct Loop {
   float alpha, beta;
   int has_dup, flood, track_norm;
   float kf;  // info positions the flip metric divides by (at least 1)
+  // the fused kernels' layout (K1, K2; mc_kernels.py fused_plan, checked by bad_fused)
+  const unsigned short* goff;  // [e_slots * Z] L offset of every (slot, z)
+  int gathers;                 // the table holds goff
+  int cpg, tpg;                // codewords per barrier group, threads per group
+  int Ls;                      // L stride per codeword
 };
+
+// ints of the gather offsets (two uint16 per int)
+__host__ __device__ inline int gather_words(const Loop& P) {
+  return P.gathers ? (P.e_slots * P.Z + 1) / 2 : 0;
+}
 
 __host__ __device__ inline int table_len(const Loop& P) {
   return (P.mb + 1) + 2 * P.e_slots + P.ngroups * P.R + P.ngroups + P.mb +
-         (P.flood ? (P.nb + 1) + 2 * P.e_slots : 0);
+         (P.flood ? (P.nb + 1) + 2 * P.e_slots : 0) + gather_words(P);
 }
 
 __shared__ int s_done[MAX_LPB];
@@ -89,6 +129,7 @@ __shared__ int s_err[MAX_LPB];
 __shared__ int s_pre[MAX_LPB];  // lane pre-marked done: no load, no count
 __shared__ int s_flips[MAX_LPB];
 __shared__ float s_norm[MAX_LPB];
+__shared__ int s_iters;  // fused kernels: the block's trips (max over its codewords)
 
 // Copy the schedule tables into shared memory and point P at the copies.
 __device__ void stage_tables(Loop& P, const int* tab, int* stab) {
@@ -103,34 +144,33 @@ __device__ void stage_tables(Loop& P, const int* tab, int* stab) {
   P.col_off = P.row_dup + P.mb;
   P.col_slot = P.col_off + P.nb + 1;
   P.col_shift = P.col_slot + P.e_slots;
+  P.goff = reinterpret_cast<const unsigned short*>(stab + len - gather_words(P));
   P.info_mask = tab + len;
 }
 
 struct MulOp {
   __device__ float operator()(float a, float b) const { return a * b; }
 };
-struct MinOp {
-  __device__ float operator()(float a, float b) const { return fminf(a, b); }
-};
 
-// Leave-one-out combine in the order of ldpc_tpu/ops/spa.py exclusive_combine:
-// prefix[i] folds v[0..i-1] left to right, suffix[i] folds v[d-1..i+1] right
-// to left, out[j] = op(prefix[j], suffix[j]); `none` stands for an empty fold.
+// Leave-one-out combine in place, in the order of ldpc_tpu/ops/spa.py
+// exclusive_combine: prefix[i] folds v[0..i-1] left to right, suffix[i]
+// folds v[d-1..i+1] right to left, v[j] <- op(prefix[j], suffix[j]); `none`
+// stands for an empty fold. The suffixes live in one array and the prefix in
+// one running value, so a row holds 2 x DMAX values, not 4.
 template <int DMAX, class Op>
-__device__ __forceinline__ void exclusive_combine(const float (&v)[DMAX], float (&out)[DMAX],
-                                                  int d, float none, Op op) {
-  float pre[DMAX], suf[DMAX];
-#pragma unroll
-  for (int i = 1; i < DMAX; ++i)
-    if (i < d) pre[i] = (i == 1) ? v[0] : op(pre[i - 1], v[i - 1]);
+__device__ __forceinline__ void exclusive_combine(float (&v)[DMAX], int d, float none, Op op) {
+  float suf[DMAX];
 #pragma unroll
   for (int i = DMAX - 2; i >= 0; --i)
     if (i <= d - 2) suf[i] = (i == d - 2) ? v[i + 1] : op(suf[i + 1], v[i + 1]);
+  float pre = none;
 #pragma unroll
   for (int j = 0; j < DMAX; ++j) {
     if (j < d) {
       const bool hp = j > 0, hs = j < d - 1;
-      out[j] = hp ? (hs ? op(pre[j], suf[j]) : pre[j]) : (hs ? suf[j] : none);
+      const float out = hp ? (hs ? op(pre, suf[j]) : pre) : (hs ? suf[j] : none);
+      if (hs) pre = hp ? op(pre, v[j]) : v[0];
+      v[j] = out;
     }
   }
 }
@@ -140,44 +180,54 @@ template <int DMAX>
 __device__ __forceinline__ void check_update(const float (&m)[DMAX], float (&e)[DMAX], int d,
                                              int variant, float alpha, float beta) {
   if (variant == 0) {
-    float t[DMAX], pr[DMAX];
 #pragma unroll
     for (int j = 0; j < DMAX; ++j) {
       if (j < d) {
         const float x = fminf(fmaxf(m[j] * 0.5f, -TANH_IN_CLIP), TANH_IN_CLIP);
-        t[j] = fminf(fmaxf(tanhf(x), -PROD_CLIP), PROD_CLIP);
+        e[j] = fminf(fmaxf(tanhf(x), -PROD_CLIP), PROD_CLIP);
       }
     }
-    exclusive_combine<DMAX>(t, pr, d, 1.0f, MulOp());
+    exclusive_combine<DMAX>(e, d, 1.0f, MulOp());
 #pragma unroll
     for (int j = 0; j < DMAX; ++j) {
       if (j < d) {
-        const float p = fminf(fmaxf(pr[j], -PROD_CLIP), PROD_CLIP);
+        const float p = fminf(fmaxf(e[j], -PROD_CLIP), PROD_CLIP);
         e[j] = logf((1.0f + p) / (1.0f - p));
       }
     }
     return;
   }
-  float sg[DMAX], mg[DMAX], so[DMAX], mo[DMAX];
+  // min-sum family: the leave-one-out sign is a product of +-1 and the
+  // leave-one-out magnitude a minimum, both exact in any order, so the
+  // exclusive_combine folds reduce to the sign parity and the two smallest
+  // magnitudes (out[j] = the smallest, or the second smallest at the first
+  // index of the smallest; `none` = 1e30 where a row has one slot)
+  float min1 = 1e30f, min2 = 1e30f, sgn = 1.0f;
+  int at = -1;
 #pragma unroll
   for (int j = 0; j < DMAX; ++j) {
     if (j < d) {
-      sg[j] = m[j] < 0.0f ? -1.0f : 1.0f;
-      mg[j] = fabsf(m[j]);
+      const float a = fabsf(m[j]);
+      if (m[j] < 0.0f) sgn = -sgn;
+      if (a < min1) {
+        min2 = min1;
+        min1 = a;
+        at = j;
+      } else {
+        min2 = fminf(min2, a);
+      }
     }
   }
-  exclusive_combine<DMAX>(sg, so, d, 1.0f, MulOp());
-  exclusive_combine<DMAX>(mg, mo, d, 1e30f, MinOp());
 #pragma unroll
   for (int j = 0; j < DMAX; ++j) {
     if (j < d) {
-      float mag = mo[j];
+      float mag = (d == 1) ? 1e30f : (j == at ? min2 : min1);
       if (variant == 2) {
         mag = alpha * mag;
       } else if (variant == 3) {
         mag = fmaxf(mag - beta, 0.0f);
       }
-      e[j] = so[j] * mag;
+      e[j] = (m[j] < 0.0f ? -sgn : sgn) * mag;
     }
   }
 }
@@ -354,33 +404,6 @@ __device__ int decode_block(const Loop& P, float* L, float* E, float* D, const f
   return it;
 }
 
-// Count info-bit mismatches of the decisions against the sent word and
-// write the block's per-lane outputs (a pre-done lane counts 0 errors).
-__device__ void finish(const Loop& P, const float* L, const float* w, int lane, int rz, int b,
-                       bool valid, int it, int* err, unsigned char* ok, int* conv, float* norm,
-                       int* iters) {
-  const int lpb = P.lpb;
-  int cnt = 0;
-  if (valid && !s_pre[lane]) {
-    for (int pos = rz; pos < P.n; pos += P.R * P.Z) {
-      if (P.info_mask[pos]) {
-        const bool est = L[pos * lpb + lane] < 0.0f;
-        const bool x = w[(size_t)pos * P.B + b] != 0.0f;
-        cnt += est != x;
-      }
-    }
-  }
-  if (cnt) atomicAdd(&s_err[lane], cnt);
-  __syncthreads();
-  if (threadIdx.x < lpb && valid) {
-    err[b] = s_err[lane];
-    ok[b] = s_done[lane] ? 1 : 0;
-    conv[b] = s_conv[lane];
-    norm[b] = 0.0f;  // the normalized-LLR metric is not ported
-    iters[b] = it;
-  }
-}
-
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
@@ -412,19 +435,218 @@ __device__ __forceinline__ void box_muller2(unsigned hi, unsigned lo, unsigned a
   z1 = rad * sinf(ang);
 }
 
+// ---- the fused kernels (K1, K2) ----
+//
+// Two thread maps. Loads and stores of device memory run lane-fastest:
+// thread tid serves codeword lane = tid % lpb at item tid / lpb, so a warp
+// reads lpb adjacent codewords of one row (whole 32-byte sectors at lpb=8).
+// The decode runs codeword-major: barrier group gid = tid / tpg holds cpg
+// codewords; thread t = tid % tpg holds slot k = t / (R*Z) of it, row
+// r and position z. A group is one codeword over whole warps (R*Z >= 32,
+// padded to a multiple of 32: the padding threads follow their codeword
+// through every barrier), or cpg codewords sharing one warp (R*Z < 32).
+
+// named barrier `id` (1..15) of `n` threads, a multiple of 32
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// named_sync that also returns whether `v` holds on any of the n threads
+__device__ __forceinline__ bool named_any(int id, int n, bool v) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\tsetp.ne.s32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\tselp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"((int)v), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+
+// The barrier of one codeword group. SOLO: the block is one group, which
+// takes the block's barrier 0. Otherwise named barrier `id`: ptxas cannot
+// tell which ids a register names, so it reserves all 16 for the block, and
+// the occupancy query then allows at most 4 such blocks per SM (PERF.md); a
+// SOLO block uses one barrier and is bound by its registers and shared
+// memory alone.
+template <bool SOLO>
+__device__ __forceinline__ void group_sync(int id, int n) {
+  if (SOLO) {
+    __syncthreads();
+  } else {
+    named_sync(id, n);
+  }
+}
+
+template <bool SOLO>
+__device__ __forceinline__ bool group_any(int id, int n, bool v) {
+  return SOLO ? __syncthreads_or(v) != 0 : named_any(id, n, v);
+}
+
+// The layered decode loop (spa_pallas.py:176-574) of this thread's barrier
+// group, in place on its codewords' L [lpb][Ls] and E [lpb][e_slots * Z]
+// (D: the multi-diagonal deltas, [lpb][R * DMAX * Z]). A codeword runs from
+// its entry in s_done until it passes a syndrome check or the budget ends;
+// the group leaves the loop when all its codewords have (a warp-uniform
+// test: the group's state comes out of the same barrier reduction or warp
+// vote on every thread). Each codeword's leader then writes its s_done /
+// s_conv and folds its trips into the block's s_iters (their max).
+template <int DMAX, bool SOLO>
+__device__ void decode_group(const Loop& P, float* L, float* E, float* D) {
+  const int Z = P.Z, R = P.R, RZ = R * Z, cpg = P.cpg, tpg = P.tpg;
+  const int gid = threadIdx.x / tpg, t = threadIdx.x - gid * tpg, id = 1 + gid;
+  const int k = t / RZ, rz = t - k * RZ, r = rz / Z, z = rz - r * Z;
+  const bool on = k < cpg;  // holds a (row, z) of a codeword
+  const int c = gid * cpg + (cpg == 1 ? 0 : (on ? k : 0));
+  float* Lc = L + c * P.Ls;
+  float* Ec = E + c * P.e_slots * Z;
+  float* Dc = D + c * R * DMAX * Z;
+  const unsigned short* goff = P.goff;
+  bool done = (cpg > 1 && !on) ? true : s_done[c] != 0;
+  int conv = -1, trips = 0, it = 0;
+  while (it < P.max_it && (cpg == 1 ? !done : __any_sync(0xffffffffu, !done))) {
+    // `active` is fixed for the whole check window (spa_pallas.py:527-529)
+    const bool active = on && !done, live = !done;
+    for (int step = 0; step < P.check_every; ++step) {
+      for (int g = 0; g < P.ngroups; ++g) {
+        const int bi = active ? P.groups[g * R + r] : -1;
+        int off = 0, d = 0;
+        bool dup = false;
+        if (bi >= 0) {
+          off = P.row_off[bi];
+          d = P.row_off[bi + 1] - off;
+          dup = P.row_dup[bi] != 0;
+          const unsigned short* gz = goff + off * Z + z;  // slot j's offset at gz[j * Z]
+          float* ez = Ec + off * Z + z;                      // slot j's E at ez[j * Z]
+          float m[DMAX], e[DMAX];
+#pragma unroll
+          for (int j = 0; j < DMAX; ++j) {
+            if (j < d) m[j] = Lc[gz[j * Z]] - ez[j * Z];
+          }
+          check_update<DMAX>(m, e, d, P.variant, P.alpha, P.beta);
+          // the offsets are read again rather than held through the update
+#pragma unroll
+          for (int j = 0; j < DMAX; ++j) {
+            if (j < d) {
+              const int li = gz[j * Z];
+              if (dup) {
+                // the delta lands at the position it updates
+                Dc[(r * DMAX + j) * Z + li - P.slot_col[off + j] * Z] = e[j] - ez[j * Z];
+              } else {
+                Lc[li] = m[j] + e[j];
+              }
+              ez[j * Z] = e[j];
+            }
+          }
+        }
+        if (P.grp_dup[g]) {
+          // multi-diagonal row: after every read of L, add each base column's
+          // deltas (summed in slot order) at this thread's position z
+          group_sync<SOLO>(id, tpg);
+          if (bi >= 0 && dup) {
+            for (int j = 0; j < d; ++j) {
+              const int col = P.slot_col[off + j];
+              bool first = true;
+              for (int jj = 0; jj < j; ++jj) first &= P.slot_col[off + jj] != col;
+              if (!first) continue;
+              float acc = 0.0f;
+              for (int jj = j; jj < d; ++jj) {
+                if (P.slot_col[off + jj] != col) continue;
+                const float dv = Dc[(r * DMAX + jj) * Z + z];
+                acc = (jj == j) ? dv : acc + dv;
+              }
+              Lc[col * Z + z] = Lc[col * Z + z] + acc;
+            }
+          }
+        }
+        group_sync<SOLO>(id, tpg);
+      }
+    }
+    // syndrome of the window's last sweep (exact rule: bit = L < 0)
+    bool unsat = false;
+    if (active) {
+      for (int bi = r; bi < P.mb; bi += R) {
+        const int off = P.row_off[bi], d = P.row_off[bi + 1] - off;
+        int par = 0;
+        for (int j = 0; j < d; ++j) par ^= Lc[goff[(off + j) * Z + z]] < 0.0f;
+        unsat |= par != 0;
+      }
+    }
+    bool bad;
+    if (cpg == 1) {
+      bad = group_any<SOLO>(id, tpg, unsat);
+    } else {
+      const unsigned mask = __ballot_sync(0xffffffffu, unsat);
+      bad = on && ((mask >> (k * RZ)) & ((1u << RZ) - 1u)) != 0u;
+    }
+    if (live && !bad) {
+      done = true;
+      conv = it + P.check_every - 1;  // the check iteration
+    }
+    it += P.check_every;
+    if (live) trips = it;
+  }
+  if (on && rz == 0) {
+    s_done[c] = done ? 1 : 0;
+    s_conv[c] = conv;
+    atomicMax(&s_iters, trips);
+  }
+}
+
+// Count info-bit mismatches of the decisions against the sent word
+// (lane-fastest) and write the block's per-lane outputs (a pre-done lane
+// counts 0 errors; `iters` is the block's trips).
+__device__ void finish(const Loop& P, const float* L, const float* w, int lane, int item0,
+                       int nitems, int b, bool valid, int* err, unsigned char* ok, int* conv,
+                       float* norm, int* iters) {
+  int cnt = 0;
+  if (valid && !s_pre[lane]) {
+    for (int pos = item0; pos < P.n; pos += nitems) {
+      if (P.info_mask[pos]) {
+        const bool est = L[lane * P.Ls + pos] < 0.0f;
+        const bool x = w[(size_t)pos * P.B + b] != 0.0f;
+        cnt += est != x;
+      }
+    }
+  }
+  if (cnt) atomicAdd(&s_err[lane], cnt);
+  __syncthreads();
+  if (threadIdx.x < P.lpb && valid) {
+    err[b] = s_err[lane];
+    ok[b] = s_done[lane] ? 1 : 0;
+    conv[b] = s_conv[lane];
+    norm[b] = 0.0f;  // the normalized-LLR metric is not ported
+    iters[b] = s_iters;
+  }
+}
+
+// The shared-memory arrays of a fused block: L, E, D, then the tables.
+struct FusedSmem {
+  float *L, *E, *D;
+  int* tables;
+};
+
 template <int DMAX>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ FusedSmem fused_smem(const Loop& P, float* smem) {
+  FusedSmem S;
+  S.L = smem;
+  S.E = S.L + P.lpb * P.Ls;
+  S.D = S.E + P.lpb * P.e_slots * P.Z;
+  S.tables = reinterpret_cast<int*>(S.D + (P.has_dup ? P.lpb * P.R * DMAX * P.Z : 0));
+  return S;
+}
+
+template <int DMAX, int MAXT, int MINB, bool SOLO>
+__global__ void __launch_bounds__(MAXT, MINB)
 mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, const float* consts,
                   int* err, unsigned char* ok, int* conv, float* norm, int* iters,
                   float* llr_out, int mode, float amp, int noise_input, unsigned key0,
                   unsigned key1, int skip) {
   extern __shared__ float smem[];
+  const FusedSmem S = fused_smem<DMAX>(P, smem);
+  stage_tables(P, tab, S.tables);
   const int lpb = P.lpb, Z = P.Z, n = P.n, B = P.B;
-  float* L = smem;
-  float* E = L + n * lpb;
-  float* D = E + P.e_slots * Z * lpb;
-  stage_tables(P, tab, reinterpret_cast<int*>(D + (P.has_dup ? P.R * DMAX * Z * lpb : 0)));
-  const int tid = threadIdx.x, lane = tid % lpb, rz = tid / lpb, r = rz / Z, z = rz % Z;
+  const int tid = threadIdx.x, lane = tid % lpb, item0 = tid / lpb, nitems = blockDim.x / lpb;
   const int b = blockIdx.x * lpb + lane;
   const bool valid = b < B;
   if (tid < lpb) {
@@ -433,8 +655,11 @@ mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, c
     s_conv[tid] = -1;
     s_err[tid] = 0;
   }
+  if (tid == 0) s_iters = 0;
+  for (int i = tid; i < lpb * P.e_slots * Z; i += blockDim.x) S.E[i] = 0.0f;
   const float c_noise1 = consts[0], c_scale = consts[1], c_s1 = consts[2], c_s2 = consts[3];
   const float c_lc1 = consts[4], c_lc2 = consts[5], c_lc3 = consts[6], c_p = consts[7];
+  float* Ll = S.L + lane * P.Ls;
 
   // channel_fill (mc_pallas.py:253-293): base columns 2p and 2p+1 share one
   // draw triple per normal, from column 2p's planes
@@ -452,13 +677,13 @@ mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, c
         llr = -(((sym + n1 + n2) * c_p + (sym + n1) * (1.0f - c_p)) * c_lc3);
       }
     }
-    L[pos * lpb + lane] = llr;
+    Ll[pos] = llr;
     if (llr_out) llr_out[pos * B + b] = llr;
   };
   if (valid) {
     const int npairs = (P.nb + 1) / 2;
     const size_t nB = (size_t)n * B;
-    for (int item = rz; item < npairs * Z; item += P.R * Z) {
+    for (int item = item0; item < npairs * Z; item += nitems) {
       const int p = item / Z, zz = item - p * Z, c0 = 2 * p, c1 = c0 + 1;
       const bool has1 = c1 < P.nb;
       unsigned a0, a1, a2, b0 = 0, b1 = 0, b2 = 0, j0 = 0, j1 = 0;
@@ -500,21 +725,18 @@ mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, c
     }
   }
   __syncthreads();
-  const int it = decode_block<DMAX, false, false>(P, L, E, D, nullptr, lane, r, z, valid);
-  finish(P, L, w, lane, rz, b, valid, it, err, ok, conv, norm, iters);
+  decode_group<DMAX, SOLO>(P, S.L, S.E, S.D);
+  __syncthreads();
+  finish(P, S.L, w, lane, item0, nitems, b, valid, err, ok, conv, norm, iters);
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(1024)
+template <int DMAX, int MAXT, int MINB, bool SOLO>
+__global__ void __launch_bounds__(MAXT, MINB)
 llr_decoder_kernel(Loop P, const int* tab, const float* llr, const float* w, const float* done0,
                    int* err, unsigned char* ok, int* conv, float* norm, int* iters) {
   extern __shared__ float smem[];
-  const int lpb = P.lpb, Z = P.Z, n = P.n, B = P.B;
-  float* L = smem;
-  float* E = L + n * lpb;
-  float* D = E + P.e_slots * Z * lpb;
-  stage_tables(P, tab, reinterpret_cast<int*>(D + (P.has_dup ? P.R * DMAX * Z * lpb : 0)));
-  const int tid = threadIdx.x, lane = tid % lpb, rz = tid / lpb, r = rz / Z, z = rz % Z;
+  const int lpb = P.lpb, B = P.B;
+  const int tid = threadIdx.x, lane = tid % lpb, item0 = tid / lpb, nitems = blockDim.x / lpb;
   const int b = blockIdx.x * lpb + lane;
   const bool valid = b < B;
   if (tid < lpb) {
@@ -523,14 +745,32 @@ llr_decoder_kernel(Loop P, const int* tab, const float* llr, const float* w, con
     s_conv[tid] = -1;
     s_err[tid] = 0;
   }
+  if (tid == 0) s_iters = 0;
   __syncthreads();
+  bool all_pre = true;
+  for (int l = 0; l < lpb; ++l) all_pre &= s_pre[l] != 0;
+  if (all_pre) {  // a block of placeholders (the split's converged tail)
+    if (tid < lpb && valid) {
+      err[b] = 0;
+      ok[b] = 1;
+      conv[b] = -1;
+      norm[b] = 0.0f;
+      iters[b] = 0;
+    }
+    return;
+  }
+  const FusedSmem S = fused_smem<DMAX>(P, smem);
+  stage_tables(P, tab, S.tables);
+  for (int i = tid; i < lpb * P.e_slots * P.Z; i += blockDim.x) S.E[i] = 0.0f;
   // pre-done lanes are placeholders: their LLRs are never read
   if (valid && !s_pre[lane]) {
-    for (int pos = rz; pos < n; pos += P.R * Z) L[pos * lpb + lane] = llr[(size_t)pos * B + b];
+    for (int pos = item0; pos < P.n; pos += nitems)
+      S.L[lane * P.Ls + pos] = llr[(size_t)pos * B + b];
   }
   __syncthreads();
-  const int it = decode_block<DMAX, false, false>(P, L, E, D, nullptr, lane, r, z, valid);
-  finish(P, L, w, lane, rz, b, valid, it, err, ok, conv, norm, iters);
+  decode_group<DMAX, SOLO>(P, S.L, S.E, S.D);
+  __syncthreads();
+  finish(P, S.L, w, lane, item0, nitems, b, valid, err, ok, conv, norm, iters);
 }
 
 // spa_pallas.py:686-708: decode the channel LLRs ``llr`` [B, n] (LLR > 0 <=>
@@ -609,19 +849,47 @@ size_t smem_bytes(const Loop& P, int dmax) {
   return 4 * (floats + table_len(P));
 }
 
+// The fused kernels' block as the caller planned it
+// (ldpc_tpu_torch/ops/mc_kernels.py fused_plan): barrier groups of cpg
+// codewords and tpg threads, and the L stride Ls; bad_fused checks it.
+Loop fused_loop(Loop P, int cpg, int tpg, int Ls) {
+  P.cpg = cpg;
+  P.tpg = tpg;
+  P.Ls = Ls;
+  P.gathers = 1;
+  return P;
+}
+
+int fused_threads(const Loop& P) { return P.lpb / P.cpg * P.tpg; }
+
+size_t fused_smem_bytes(const Loop& P, int dmax) {
+  const size_t floats = (size_t)P.lpb * (P.Ls + (size_t)P.e_slots * P.Z +
+                                         (P.has_dup ? (size_t)P.R * dmax * P.Z : 0));
+  return 4 * (floats + table_len(P));
+}
+
+// Every fused block launches at most FUSED_MAX_THREADS threads (R * Z <= 768
+// for every code the plan takes), and 768 resident threads per SM is what
+// the shared memory of any plan allows at the bench code; the bound caps a
+// thread at 80 registers, which keeps the DMAX=8 bodies out of local memory.
+constexpr int FUSED_MAX_THREADS = 768, FUSED_MIN_BLOCKS = 1;
+
+bool solo(const Loop& P) { return P.lpb == P.cpg; }
+
 template <int DMAX>
 cudaError_t launch_mc(const Loop& P, const int* tab, const float* w, const unsigned* raw,
                       const float* consts, int* err, unsigned char* ok, int* conv, float* norm,
                       int* iters, float* llr_out, int mode, float amp, int noise_input,
                       unsigned key0, unsigned key1, int skip, cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, DMAX);
-  cudaError_t e = cudaFuncSetAttribute(mc_decoder_kernel<DMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = solo(P) ? mc_decoder_kernel<DMAX, FUSED_MAX_THREADS, FUSED_MIN_BLOCKS, true>
+                        : mc_decoder_kernel<DMAX, FUSED_MAX_THREADS, FUSED_MIN_BLOCKS, false>;
+  const size_t smem = fused_smem_bytes(P, DMAX);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(P.lpb * P.R * P.Z);
-  mc_decoder_kernel<DMAX><<<grid, block, smem, stream>>>(P, tab, w, raw, consts, err, ok, conv,
-                                                         norm, iters, llr_out, mode, amp,
-                                                         noise_input, key0, key1, skip);
+  const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(fused_threads(P));
+  kernel<<<grid, block, smem, stream>>>(P, tab, w, raw, consts, err, ok, conv, norm, iters,
+                                        llr_out, mode, amp, noise_input, key0, key1, skip);
   return cudaGetLastError();
 }
 
@@ -629,13 +897,14 @@ template <int DMAX>
 cudaError_t launch_llr(const Loop& P, const int* tab, const float* llr, const float* w,
                        const float* done0, int* err, unsigned char* ok, int* conv, float* norm,
                        int* iters, cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, DMAX);
-  cudaError_t e = cudaFuncSetAttribute(llr_decoder_kernel<DMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = solo(P) ? llr_decoder_kernel<DMAX, FUSED_MAX_THREADS, FUSED_MIN_BLOCKS, true>
+                        : llr_decoder_kernel<DMAX, FUSED_MAX_THREADS, FUSED_MIN_BLOCKS, false>;
+  const size_t smem = fused_smem_bytes(P, DMAX);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(P.lpb * P.R * P.Z);
-  llr_decoder_kernel<DMAX><<<grid, block, smem, stream>>>(P, tab, llr, w, done0, err, ok, conv,
-                                                          norm, iters);
+  const dim3 grid((P.B + P.lpb - 1) / P.lpb), block(fused_threads(P));
+  kernel<<<grid, block, smem, stream>>>(P, tab, llr, w, done0, err, ok, conv, norm, iters);
   return cudaGetLastError();
 }
 
@@ -657,6 +926,21 @@ bool bad_shape(int lpb, int R, int Z, int B) {
   return lpb < 1 || lpb > MAX_LPB || R < 1 || R > 2 || lpb * R * Z > 1024 || B < 0;
 }
 
+// A fused plan the kernels can run: 1, 2, 4 or 8 codewords in groups of a
+// power of two; a group's threads whole warps holding its codewords' R*Z
+// each, and one warp where codewords share it (the warp vote of
+// decode_group); at most FUSED_MAX_THREADS threads; an L stride of at least
+// n; positions that fit the uint16 gather offsets; and `smem`, the caller's
+// size, equal to the layout's.
+bool bad_fused(const Loop& P, int dmax, int smem) {
+  const int lpb = P.lpb, cpg = P.cpg, tpg = P.tpg;
+  return lpb < 1 || lpb > MAX_LPB || (lpb & (lpb - 1)) || cpg < 1 || (cpg & (cpg - 1)) ||
+         lpb % cpg || P.R < 1 || P.R > 2 || tpg < 32 || tpg % 32 ||
+         cpg * P.R * P.Z > tpg || (cpg > 1 && tpg != 32) ||
+         fused_threads(P) > FUSED_MAX_THREADS || P.Ls < P.n || P.n > 65535 || P.B < 0 ||
+         smem != (long long)fused_smem_bytes(P, dmax);
+}
+
 }  // namespace
 
 extern "C" const char* cuda_error_string(int e) {
@@ -668,14 +952,16 @@ extern "C" int mc_decoder_launch(const float* w, const unsigned* raw, const floa
                                  float* llr_out, const int* tab, int n, int Z, int nb, int mb,
                                  int e_slots, int ngroups, int R, int lpb, int B, int max_it,
                                  int check_every, int variant, float alpha, float beta, int dmax,
-                                 int has_dup, int mode, float amp, int noise_input, unsigned key0,
-                                 unsigned key1, int skip, int device, void* stream) {
-  if (bad_shape(lpb, R, Z, B) || (noise_input && raw == nullptr)) return cudaErrorInvalidValue;
+                                 int has_dup, int cpg, int tpg, int Ls, int smem, int mode,
+                                 float amp, int noise_input, unsigned key0, unsigned key1,
+                                 int skip, int device, void* stream) {
+  const Loop P = fused_loop(make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, lpb, B, max_it,
+                                      check_every, variant, alpha, beta, has_dup),
+                            cpg, tpg, Ls);
+  if (bad_fused(P, dmax, smem) || (noise_input && raw == nullptr)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const Loop P = make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, lpb, B, max_it, check_every,
-                           variant, alpha, beta, has_dup);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dmax) {
     case 8:
@@ -697,13 +983,15 @@ extern "C" int llr_decoder_launch(const float* llr, const float* w, const float*
                                   int* iters, const int* tab, int n, int Z, int nb, int mb,
                                   int e_slots, int ngroups, int R, int lpb, int B, int max_it,
                                   int check_every, int variant, float alpha, float beta,
-                                  int dmax, int has_dup, int device, void* stream) {
-  if (bad_shape(lpb, R, Z, B)) return cudaErrorInvalidValue;
+                                  int dmax, int has_dup, int cpg, int tpg, int Ls, int smem,
+                                  int device, void* stream) {
+  const Loop P = fused_loop(make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, lpb, B, max_it,
+                                      check_every, variant, alpha, beta, has_dup),
+                            cpg, tpg, Ls);
+  if (bad_fused(P, dmax, smem)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const Loop P = make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, lpb, B, max_it, check_every,
-                           variant, alpha, beta, has_dup);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dmax) {
     case 8:
@@ -715,6 +1003,33 @@ extern "C" int llr_decoder_launch(const float* llr, const float* w, const float*
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Resident blocks per SM of K1 (llr = 0) or K2 (llr = 1) at a block of
+// `threads` threads and `smem` bytes of dynamic shared memory, in one
+// barrier group (solo = 1) or several.
+extern "C" int fused_occupancy(int llr, int dmax, int solo, int threads, int smem, int* blocks) {
+  const void* f = nullptr;
+#define OCC_KERNEL(K, D, S) (const void*)K<D, FUSED_MAX_THREADS, FUSED_MIN_BLOCKS, S>
+#define OCC_CASE(D)                                                               \
+  case D:                                                                         \
+    f = llr ? (solo ? OCC_KERNEL(llr_decoder_kernel, D, true)                     \
+                    : OCC_KERNEL(llr_decoder_kernel, D, false))                   \
+            : (solo ? OCC_KERNEL(mc_decoder_kernel, D, true)                      \
+                    : OCC_KERNEL(mc_decoder_kernel, D, false));                   \
+    break;
+  switch (dmax) {
+    OCC_CASE(8)
+    OCC_CASE(16)
+    OCC_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef OCC_CASE
+#undef OCC_KERNEL
+  cudaError_t e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f, threads, (size_t)smem);
 }
 
 extern "C" int qc_decoder_launch(const float* llr, float* prior, unsigned char* est,

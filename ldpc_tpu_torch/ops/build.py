@@ -8,6 +8,9 @@ source can give several libraries (K5's schedule is baked in by defines).
 Nothing is compiled when a module is imported: the first launch builds, or
 :func:`build_all` does it up front (one ``nvcc`` per library, all started
 together). A library is named by its source, or by ``(source, defines)``.
+Every build runs ``ptxas -v`` and keeps its output beside the library
+(:func:`ptxas_log`, read by :func:`ptxas_report`: registers and spill bytes
+per kernel).
 
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs, so the
 kernels round exactly as their plain PyTorch versions do, op by op.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -72,13 +76,18 @@ def library_path(lib) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(libs=SOURCES, verbose: bool = False) -> dict[str, dict]:
+def ptxas_log(lib) -> str:
+    """The compiler output of a built library's build (``-Xptxas -v``)."""
+    return library_path(lib).with_suffix(".log").read_text()
+
+
+def build_all(libs=SOURCES) -> dict[str, dict]:
     """Compile every library that is not built yet, in parallel.
 
     Returns ``{label: {"seconds": t, "log": compiler output}}`` for the
-    libraries built now (``verbose`` adds ``-Xptxas -v``: registers, shared
-    memory and spills per kernel). Raises with the compiler's output if a
-    build fails."""
+    libraries built now; the output (with ``ptxas -v``: registers, shared
+    memory and spills per kernel) is kept beside each library. Raises with
+    the compiler's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -89,8 +98,8 @@ def build_all(libs=SOURCES, verbose: bool = False) -> dict[str, dict]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(defines), *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *_flags(defines), "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs[library_label(lib)] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True),
@@ -100,9 +109,53 @@ def build_all(libs=SOURCES, verbose: bool = False) -> dict[str, dict]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         built[label] = {"seconds": time.perf_counter() - t0, "log": log}
     return built
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_BARS = re.compile(r"used (\d+) barriers")
+_KERNEL = re.compile(r"([a-z][a-z_]*_kernel)I((?:L[a-z]\d+E)+)E")
+
+
+def kernel_label(mangled: str) -> str:
+    """``mc_decoder_kernel<8,768,1>`` from a mangled template kernel name
+    (the name itself when it is not a template)."""
+    m = _KERNEL.search(mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[a-z](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, barriers, stack frame and spill bytes per kernel from the
+    output of a ``-Xptxas -v`` build: ``{label: {"registers", "barriers",
+    "stack", "spill_stores", "spill_loads"}}``, labels as
+    :func:`kernel_label` gives them."""
+    out: dict[str, dict] = {}
+    entry = props = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = kernel_label(m.group(1))
+            out.setdefault(entry, {})
+        elif m := _PROPS.search(line):
+            props = kernel_label(m.group(1))
+        elif (m := _FRAME.search(line)) and props is not None:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        elif (m := _REGS.search(line)) and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            if b := _BARS.search(line):
+                out[entry]["barriers"] = int(b.group(1))
+    return out
 
 
 def load(lib) -> ctypes.CDLL:

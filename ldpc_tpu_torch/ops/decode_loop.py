@@ -21,9 +21,10 @@ Still to be ported (ROADMAP.md): int8 extrinsic storage and per-iteration
 alpha schedules.
 
 Every op is per lane, so a lane's trajectory does not depend on the others.
-Only ``iters`` does: the kernel runs a block of ``lanes`` codewords until all
-of them are done, and reports that block's trip count to each of its lanes;
-this version counts the same per-block trips.
+Only ``iters`` does: the kernel reports to each lane the trip count of its
+block of ``lanes`` codewords, the largest of their trips (each codeword runs
+until it passes a check or the budget ends); this version counts the same
+per-block trips.
 """
 
 from __future__ import annotations

@@ -11,17 +11,30 @@ Replaces the two Pallas kernels of the JAX package's main path:
   decode and counts from given LLRs with a per-lane pre-done mask.
 
 Both kernels live in ``csrc/mc_decoder.cu`` and share one ``__device__``
-decode loop, the counterpart of ``spa_pallas.make_decode_loop``. What bounds
-them on the card: the decode is a chain of dependent layer steps per
-codeword, each a gather along Z, a leave-one-out combine and a scatter, with
-a block barrier between steps; the card's memory traffic is small (the
-codeword bits in, five counter rows out, the LLRs when emitted). So they are
-bound by operations and by the latency of those steps. The design keeps a
-block's posteriors L and extrinsics E in shared memory for the whole decode
-(no device-memory traffic per iteration), gives every (row, z, codeword) of
-a layer step its own thread, so a roll along Z is an indexed shared-memory
-read and a single-diagonal layer needs no atomics, and runs the rows of a
-paired layer group in the same step.
+decode loop (``decode_group``), the counterpart of
+``spa_pallas.make_decode_loop``. What bounds them on the card: instruction
+issue on a chain of dependent layer steps per codeword (a gather along Z,
+SPA's tanh / log / division combine, a scatter, a barrier); the card's
+memory traffic is small (the codeword bits in, five counter rows out, the
+LLRs when emitted). Their design, point by point (the source's note has the
+detail, ``PERF.md`` the time each point bought):
+
+1. per-codeword progress: a codeword's threads fill whole warps (or up to 8
+   codewords share a warp where rows x Z < 32), sync on their own barrier
+   and leave once they pass the syndrome check; the block plan
+   (:func:`fused_plan`) is one such group per block, so at the bench code a
+   block is one codeword of 96 threads, 8 resident per SM;
+2. no spills at DMAX=8: a 768-thread launch bound (80 registers) and a
+   leave-one-out combine that holds 2 x DMAX values;
+3. precomputed gathers: :func:`gather_offsets`, staged in shared memory;
+4. lane-fastest device-memory loads and stores, so a warp reads adjacent
+   codewords of one row.
+
+The posteriors L and extrinsics E of a block's codewords stay in shared
+memory for the whole decode (no device-memory traffic per iteration).
+``lanes=`` picks another plan (1, 2, 4 or 8 codewords per block, as the
+block-plan ladder ``scripts/block_plan_ladder.py`` measures them); every
+output but ``iters`` (the block's trips) is the same under any plan.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor (it raises on what the kernel does not take;
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -203,7 +217,8 @@ _U = ctypes.c_uint32
 _LOOP_ARGS = [_P,  # tables
               _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R lpb B
               _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
-              _I, _I]  # dmax has_dup
+              _I, _I,  # dmax has_dup
+              _I, _I, _I, _I]  # the FusedPlan: cpg tpg Ls smem
 
 MC_KERNEL = Kernel(
     "mc_decoder", "mc_decoder_launch",
@@ -242,12 +257,35 @@ def table_len(tables: QCTables, flood: bool = False) -> int:
     return (qc.mb + 1) + 2 * tables.e_slots + ng * tables.R + ng + qc.mb
 
 
-def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
+def gather_offsets(tables: QCTables) -> np.ndarray:
+    """uint16 [e_slots, Z]: the L offset ``slot_col * Z + (z + shift) % Z``
+    that check row ``z`` of each flattened edge slot reads and writes (slot
+    ``row_off[bi] + j`` is slot ``j`` of base row ``bi``; a layer group's
+    rows are its slots' rows). The fused kernels stage it in shared memory,
+    so an edge costs one table load instead of two plus a multiply and a
+    wrap; the syndrome check reads it too."""
+    qc = tables.qc
+    if qc.n > np.iinfo(np.uint16).max:
+        raise ValueError(f"n={qc.n} does not fit the uint16 gather offsets")
+    z = np.arange(qc.Z, dtype=np.int64)
+    col = tables.slot_col.astype(np.int64)[:, None]
+    shift = tables.slot_shift.astype(np.int64)[:, None]
+    return (col * qc.Z + (z[None, :] + shift) % qc.Z).astype(np.uint16)
+
+
+def gather_words(tables: QCTables) -> int:
+    """Ints the gather offsets take in the table (two uint16 per int)."""
+    return (tables.e_slots * tables.qc.Z + 1) // 2
+
+
+def kernel_table(tables: QCTables, info_pos, flood: bool = False,
+                 gathers: bool = False) -> np.ndarray:
     """int32 table the kernels read, in ``csrc/mc_decoder.cu``'s order: row
     offsets, slot columns and shifts, layer groups (padded with -1) and their
     multi-diagonal flags (none under flooding), multi-diagonal rows, the
-    column tables (flooding only), then the info mask [n] (read from device
-    memory, not staged)."""
+    column tables (flooding only), the gather offsets (``gathers``: the fused
+    kernels; :func:`gather_offsets` packed two to an int, low half first),
+    then the info mask [n] (read from device memory, not staged)."""
     t = tables
     info_mask = np.zeros(t.qc.n, np.int32)
     info_mask[np.asarray(info_pos, np.int64)] = 1
@@ -262,11 +300,15 @@ def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
             [int(any(t.row_dup[bi] for bi in rows)) for rows in t.groups],
             np.int32)
         parts += [groups.ravel(), grp_dup, t.row_dup]
+    if gathers:
+        g = gather_offsets(t).ravel()
+        g = np.concatenate([g, np.zeros(g.size % 2, np.uint16)])
+        parts.append(g.astype("<u2").view("<i4"))
     return np.concatenate(parts + [info_mask]).astype(np.int32)
 
 
 def smem_bytes(tables: QCTables, lpb: int, flood: bool = False) -> int:
-    """Dynamic shared memory of one block: L, E (and the delta scratch of
+    """Dynamic shared memory of one K3 block: L, E (and the delta scratch of
     multi-diagonal layers, or flooding's channel LLRs) for ``lpb``
     codewords, plus the tables."""
     qc = tables.qc
@@ -279,9 +321,10 @@ def smem_bytes(tables: QCTables, lpb: int, flood: bool = False) -> int:
 
 
 def block_plan(tables: QCTables, flood: bool = False) -> tuple[int, int]:
-    """(codewords per block, rows per step): the most of 8/4/2/1 codewords
-    whose threads (codewords x rows per step x Z) and shared memory fit one
-    block. A layered step runs its layer group's rows; a flooding sweep
+    """K3's block (``qc_kernels.QCDecoder``; K1 / K2 take
+    :func:`fused_plan`): (codewords per block, rows per step), the most of
+    8/4/2/1 codewords whose threads (codewords x rows per step x Z) and
+    shared memory fit one block. A layered step runs its layer group's rows; a flooding sweep
     takes 2 rows per step where the code has them. A code that fits no
     block raises with its bytes."""
     qc = tables.qc
@@ -300,9 +343,112 @@ def block_plan(tables: QCTables, flood: bool = False) -> tuple[int, int]:
     )
 
 
-def lanes_per_block(tables: QCTables) -> int:
-    """Codewords per block of the layered kernels (:func:`block_plan`)."""
-    return block_plan(tables)[0]
+FUSED_MAX_THREADS = 768  # csrc/mc_decoder.cu: the fused kernels' launch bound
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """The block of the fused kernels (K1, K2). The wrappers pass it to the
+    kernels' entry points, which only validate it (``bad_fused`` in
+    ``csrc/mc_decoder.cu``: a shared memory size that differs from the
+    layout's is refused).
+
+    ``lanes`` codewords per block, in barrier groups of ``cw_per_group``
+    codewords and ``group_threads`` threads (a multiple of 32): one
+    codeword's ``rows x Z`` threads padded to whole warps, or, where
+    ``rows x Z < 32``, up to ``32 // (rows x Z)`` codewords (a power of two)
+    sharing one warp. ``l_stride`` is a codeword's L row in shared memory
+    (n, padded where lanes > 1 so that the lanes of a lane-fastest warp start
+    in different banks); ``smem`` the block's dynamic shared memory."""
+
+    lanes: int
+    rows: int
+    row_threads: int  # rows x Z: the threads of one codeword's layer step
+    cw_per_group: int
+    group_threads: int
+    l_stride: int
+    smem: int
+
+    @property
+    def groups(self) -> int:
+        return self.lanes // self.cw_per_group
+
+    @property
+    def threads(self) -> int:
+        return self.groups * self.group_threads
+
+    @property
+    def padding_threads(self) -> int:
+        """Threads of the block that hold no (row, z) of a codeword."""
+        return self.threads - self.lanes * self.row_threads
+
+    def launch_args(self) -> list:
+        """The plan as the entry points take it: cpg, tpg, Ls, smem."""
+        return [self.cw_per_group, self.group_threads, self.l_stride, self.smem]
+
+
+def fused_smem_bytes(tables: QCTables, lanes: int, l_stride: int) -> int:
+    """Dynamic shared memory of a fused block: L [lanes][l_stride], E
+    [lanes][e_slots * Z], the multi-diagonal deltas [lanes][R * DMAX * Z],
+    then the schedule tables with the gather offsets."""
+    qc = tables.qc
+    per_lane = l_stride + tables.e_slots * qc.Z
+    if tables.has_dup:
+        per_lane += tables.R * kernel_dmax(tables) * qc.Z
+    return 4 * (lanes * per_lane + table_len(tables) + gather_words(tables))
+
+
+def fused_plan(tables: QCTables, lanes: int | None = None) -> FusedPlan:
+    """The fused kernels' block for ``lanes`` codewords (1, 2, 4 or 8).
+
+    ``None`` takes one barrier group per block: one codeword where a row
+    step fills a warp (``R x Z >= 32``: the bench code's 96 threads), else
+    the codewords that share one warp. A block then holds its SM only while
+    its codewords decode, so a converged codeword frees its place for the
+    next block at once (``PERF.md``: the block-plan ladder). Raises when the
+    plan exceeds the launch bound or the shared memory of a block."""
+    qc = tables.qc
+    R, Z = tables.R, qc.Z
+    RZ = R * Z
+    share = 1
+    while 2 * share * RZ <= 32 and 2 * share <= 8:
+        share *= 2
+    if lanes is None:
+        lanes = share
+    if lanes not in (1, 2, 4, 8):
+        raise ValueError(f"lanes={lanes}: the fused kernels take 1, 2, 4 or "
+                         "8 codewords per block")
+    cpg = min(share, lanes)
+    tpg = 32 if RZ < 32 else -(-RZ // 32) * 32
+    stride = qc.n if lanes == 1 else qc.n + (32 // lanes - qc.n) % 32
+    plan = FusedPlan(lanes=lanes, rows=R, row_threads=RZ, cw_per_group=cpg,
+                     group_threads=tpg, l_stride=stride,
+                     smem=fused_smem_bytes(tables, lanes, stride))
+    if plan.threads > FUSED_MAX_THREADS or plan.smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"code n={qc.n}, Z={qc.Z} at lanes={lanes} does not fit one block "
+            f"of the fused kernels: {plan.threads} threads (at most "
+            f"{FUSED_MAX_THREADS}) and {plan.smem} bytes of shared memory (at "
+            f"most {_SMEM_LIMIT})")
+    return plan
+
+
+def fused_blocks_per_sm(tables: QCTables, plan: FusedPlan, device,
+                        llr: bool = False) -> int:
+    """Resident blocks per SM of K1 (K2 with ``llr``) at ``plan``'s launch
+    shape on the card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from ldpc_tpu_torch.ops.build import load
+
+    fn = load("mc_decoder").fused_occupancy
+    fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    blocks = _I(0)
+    with torch.cuda.device(device):
+        rc = fn(int(llr), kernel_dmax(tables), int(plan.groups == 1),
+                plan.threads, plan.smem, ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError(f"fused_occupancy failed (cudaError {rc})")
+    return blocks.value
 
 
 class _FusedBase:
@@ -311,7 +457,7 @@ class _FusedBase:
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str, *, alpha: float, beta: float, schedule: str,
-                 layer_groups, check_every: int):
+                 layer_groups, check_every: int, lanes: int | None = None):
         if schedule != "layered":
             raise NotImplementedError(
                 f"schedule {schedule!r}: the port's fused kernels run the "
@@ -330,9 +476,16 @@ class _FusedBase:
                 f"max_iterations={max_iterations}"
             )
         self.info_pos = np.asarray(info_pos, np.int64)
-        self.lanes = lanes_per_block(self.tables)
+        self.plan = fused_plan(self.tables, lanes)
+        self.lanes = self.plan.lanes
         self._dmax = kernel_dmax(self.tables)
         self._per_device: dict = {}
+
+    def blocks_per_sm(self, device) -> int:
+        """Resident blocks per SM of this decoder's kernel at its launch
+        shape (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        return fused_blocks_per_sm(self.tables, self.plan, device,
+                                   llr=isinstance(self, LLRDecoder))
 
     def _dev(self, device: torch.device):
         """(plain decode loop, info index, kernel tables) for one device."""
@@ -345,8 +498,8 @@ class _FusedBase:
             self._per_device[key] = (
                 loop,
                 torch.as_tensor(self.info_pos, device=device),
-                torch.as_tensor(kernel_table(self.tables, self.info_pos),
-                                device=device),
+                torch.as_tensor(kernel_table(self.tables, self.info_pos,
+                                             gathers=True), device=device),
             )
         return self._per_device[key]
 
@@ -361,7 +514,8 @@ class _FusedBase:
         return [tab.data_ptr(), qc.n, qc.Z, qc.nb, qc.mb, t.e_slots,
                 len(t.groups), t.R, self.lanes, B, self.max_iterations,
                 self.check_every, _VARIANT_CODE[self.variant], self.alpha,
-                self.beta, self._dmax, int(t.has_dup)]
+                self.beta, self._dmax, int(t.has_dup),
+                *self.plan.launch_args()]
 
     @staticmethod
     def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -396,8 +550,10 @@ class MCDecoder(_FusedBase):
     int32 [B]; ``err`` counts info-bit mismatches in every frame (callers
     apply the failed-frames rule); ``conv`` is the check iteration of
     convergence or -1; ``norm`` is zeros (the metric is not ported);
-    ``iters`` is the trip count of the lane's block. ``emit_llr`` appends
-    the channel LLRs, f32 [n, B] in the log(p0/p1) domain.
+    ``iters`` is the trip count of the lane's block (the largest of its
+    codewords'). ``emit_llr`` appends the channel LLRs, f32 [n, B] in the
+    log(p0/p1) domain. ``lanes``: codewords per block (None: the default
+    :func:`fused_plan`), which changes ``iters`` only.
     """
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
@@ -405,14 +561,15 @@ class MCDecoder(_FusedBase):
                  alpha: float = 0.75, beta: float = 0.15,
                  schedule: str = "layered", emit_llr: bool = False,
                  layer_groups=None,
-                 check_every: int = 1):
+                 check_every: int = 1, lanes: int | None = None):
         if mode not in DRAWS_PER_BIT:
             raise ValueError(f"Unknown channel mode: {mode}")
         if modulation not in (1, 2):
             raise ValueError("MC kernel supports modulation 1 (BPSK) / 2 (QPSK proxy)")
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every)
+                         layer_groups=layer_groups, check_every=check_every,
+                         lanes=lanes)
         self.mode, self.modulation = mode, modulation
         self.amp = 1.0 if modulation == 1 else 0.7
         self.emit_llr = emit_llr
@@ -481,18 +638,20 @@ class LLRDecoder(_FusedBase):
     log(p0/p1) domain (as :class:`MCDecoder` emits them), ``wT`` f32 [n, B]
     transmitted bits in the same lane order, ``done0`` f32 [B] with 1.0
     pre-marking a lane done: its LLRs are not read and its outputs are
-    placeholders (ok, conv -1, no errors). Outputs as for
-    :class:`MCDecoder`.
+    placeholders (ok, conv -1, no errors). Outputs and ``lanes`` as for
+    :class:`MCDecoder`; a block whose codewords are all pre-done only writes
+    its placeholders.
     """
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str = "spa", *, alpha: float = 0.75,
                  beta: float = 0.15, schedule: str = "layered",
                  layer_groups=None,
-                 check_every: int = 1):
+                 check_every: int = 1, lanes: int | None = None):
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every)
+                         layer_groups=layer_groups, check_every=check_every,
+                         lanes=lanes)
 
     def __call__(self, llrT, wT, done0):
         if llrT.device.type == "cpu":

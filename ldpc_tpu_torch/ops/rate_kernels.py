@@ -189,11 +189,11 @@ def mix_defines(schedule, streams: int) -> tuple[str, ...]:
     return (f"MIX_STREAMS={int(streams)}", f"MIX_LEN={len(codes)}", *words)
 
 
-def build_mix_libraries(schedule, streams, verbose: bool = False) -> dict:
+def build_mix_libraries(schedule, streams) -> dict:
     """Build the K5 library of each stream count, one ``nvcc`` each, all
     started together; returns ``build.build_all``'s report."""
     return build.build_all([("roofline", mix_defines(schedule, s))
-                            for s in streams], verbose=verbose)
+                            for s in streams])
 
 
 class MixChain:

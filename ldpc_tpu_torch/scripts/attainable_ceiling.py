@@ -10,9 +10,10 @@ K5 probe as S independent register chains per thread, over a stream ladder
 (``--streams``, default 1,2,4,8,16), at two launch shapes:
 
 * the card full of 256-thread blocks (the attainable rate: the best rung);
-* K1's own launch: one block of K1's thread count per SM (the decode
-  kernel's block plan; 768 threads at wimax 1152, paired layers). The gap
-  between the two is what K1's launch shape costs on this op mix.
+* K1's own launch: K1's blocks (its block plan: one codeword of 96
+  threads at wimax 1152, paired layers), as many per SM as the card keeps
+  resident. The gap between the two is what K1's launch shape costs on this
+  op mix.
 
 Writes ``attainable.json`` beside ``roofline.json`` (``--out``, default
 ``build/roofline``) and prints the accounting: floor, achieved, attainable,
@@ -51,18 +52,21 @@ def frame_mix(code, base: dict) -> tuple[dict, float]:
     return sol["frame_ops_by_class"], sol["frame_ops"]
 
 
-def k1_launch(code, base: dict, sm_count: int) -> tuple[int, int]:
-    """(blocks, threads) of K1's launch shape for the mix probe: one block
-    per SM of K1's threads (codewords per block x rows per step x Z)."""
+def k1_launch(code, base: dict, sm_count: int,
+              blocks_per_sm) -> tuple[int, int]:
+    """(blocks, threads) of K1's launch shape for the mix probe: K1's plan
+    at ``blocks_per_sm(tables, plan)`` resident blocks per SM (on the card,
+    ``mc_kernels.fused_blocks_per_sm``)."""
     from ldpc_tpu_torch.ops.decode_loop import build_tables
-    from ldpc_tpu_torch.ops.mc_kernels import block_plan
+    from ldpc_tpu_torch.ops.mc_kernels import fused_plan
     from ldpc_tpu_torch.sim.runner import resolve_layer_groups
 
     groups = resolve_layer_groups(
         code.qc, SimpleNamespace(layer_order=base["layer_order"]),
         base["schedule"])
-    lpb, rows = block_plan(build_tables(code.qc, groups))
-    return sm_count, lpb * rows * code.qc.Z
+    tables = build_tables(code.qc, groups)
+    plan = fused_plan(tables)
+    return sm_count * blocks_per_sm(tables, plan), plan.threads
 
 
 def attainable_report(code, base: dict, ladders: dict, *, full, k1,
@@ -115,6 +119,7 @@ def main(argv=None) -> int:
         full_occupancy_launch,
         measure_mix_rate,
     )
+    from ldpc_tpu_torch.ops.mc_kernels import fused_blocks_per_sm
     from ldpc_tpu_torch.sim.runner import load_code
 
     out = Path(args.out)
@@ -136,8 +141,9 @@ def main(argv=None) -> int:
           flush=True)
 
     full = full_occupancy_launch(dev)
-    k1 = k1_launch(code, base, torch.cuda.get_device_properties(dev)
-                   .multi_processor_count)
+    k1 = k1_launch(code, base,
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   lambda t, p: fused_blocks_per_sm(t, p, dev))
     ladders = {"full": {}, "k1": {}}
     for s in streams:
         for shape, launch in (("full", full), ("k1", k1)):

@@ -96,17 +96,20 @@ def test_multi_diagonal_additive_update_exact():
 
 def test_multi_diagonal_tables():
     from ldpc_tpu_torch.ops.decode_loop import build_tables
-    from ldpc_tpu_torch.ops.mc_kernels import lanes_per_block, smem_bytes
+    from ldpc_tpu_torch.ops.mc_kernels import block_plan, fused_plan, smem_bytes
 
     ref_code = JCode(alist=jstd.make_builtin(CCSDS), name=CCSDS)
     code = code_from_numpy(ref_code.n, ref_code.m, ref_code.H.row_idx,
                            ref_code.H.col_idx, CCSDS)
     t = build_tables(code.qc)
     assert t.has_dup and t.row_dup.all() and t.R == 1 and t.dmax == 8
-    # the delta scratch of multi-diagonal rows is part of the block's plan
-    lanes = lanes_per_block(t)
+    # the delta scratch of multi-diagonal rows is part of the block's plan,
+    # in K1 / K2's (fused_plan) and in K3's (block_plan)
     qc = code.qc
     per_lane = qc.n + t.e_slots * qc.Z + t.R * 8 * qc.Z
+    plan = fused_plan(t)
+    assert plan.smem > 4 * plan.lanes * per_lane
+    lanes = block_plan(t)[0]
     assert smem_bytes(t, lanes) > 4 * lanes * per_lane
     with pytest.raises(ValueError, match="disjoint"):
         build_tables(code.qc, [[0, 1], [2], [3]])

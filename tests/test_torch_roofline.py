@@ -287,7 +287,8 @@ def test_measure_tile_trips_on_the_cpu():
                       layer_order="paired", check_every=2, two_phase="auto")
     iters, model = troof.measure_tile_trips(code, opts, 1.5, batches=2,
                                             device="cpu")
-    assert model["lanes"] == 8.0  # MCDecoder's block at wimax 576
+    # MCDecoder's block at wimax 576, paired (R x Z = 48): one codeword
+    assert model["lanes"] == 1.0
     assert iters == model["single"]
     assert 2.0 <= model["phase1_mean"] <= model["single"] <= 8.0
     assert set(model) >= {"single", "phase1_mean", "phase2_per_tile",
@@ -346,7 +347,9 @@ def test_roofline_report_has_the_jax_keys(kernel, two_phase):
     # the attainable script prices the same frame
     mix, total = frame_mix(code, report)
     assert total == sol["frame_ops"] and sum(mix.values()) == pytest.approx(total)
-    assert k1_launch(code, report, 132) == (132, 8 * 2 * 48)
+    # K1's plan: one codeword of 2 x 48 threads per block, at the card's
+    # count of resident blocks (8 on an H100)
+    assert k1_launch(code, report, 132, lambda t, p: 8) == (132 * 8, 2 * 48)
     assert Counter(troof._mix_schedule(mix))["fma"] > 32
     # ... and writes the JAX report's keys, best rung of each launch shape
     rung = {"stabilizer_frac": 0.5, "launch": [1056, 256]}
