@@ -11,9 +11,10 @@ Phases:
 1. CUDA present; the card's name and power limit (``nvidia-smi``).
 2. Build the kernels from ``ldpc_tpu_torch/csrc`` (one ``nvcc`` per source,
    started together) and print the build time; then one line with the
-   registers, barriers and spill bytes ``ptxas`` reports for each of the 12
-   K1 / K2 instantiations (and one for K3's), failing if a DMAX=8 K1 / K2
-   instantiation spills.
+   registers, barriers and spill bytes ``ptxas`` reports for each of the 18
+   decode-kernel instantiations (K1 and K2 at row degrees 8 / 16 / 32, K3
+   at each of them x layered / flooding x with / without the flip metric),
+   failing if a DMAX=8 instantiation spills.
 3. Hold each kernel against its plain version on the card, at the main
    path's shapes (WiMAX (1152, 576), 4096 frames, paired layers, a syndrome
    check every two sweeps), for normalized min-sum and SPA:
@@ -32,10 +33,8 @@ Phases:
    layers (CCSDS), the 16 and 32 row-degree instantiations, min-sum and
    offset min-sum, channel modes 2 and 3, the QPSK proxy, serial layers,
    check every 1 and 3, and the block plans: 8 and 2 codewords sharing one
-   warp (Z=4), two such warps of 2 on named barriers (Z=16), padding
-   threads (48 and 27 threads per codeword), 2, 4 and 8 codewords on named
-   barriers (Z = 27, 96, 192 and the bench code), one codeword of 768
-   threads (n=9216).
+   warp (Z = 4 and 16), padding threads (48 and 27 threads per codeword),
+   one codeword of 192, 384 and 768 threads (Z = 96, 192, 384).
 4. The main path: ``PointExecutor`` at the settings of the headline bench
    (layered SPA, 12 iterations, paired, check every 2) through
    ``run_point(2.0, ...)`` for 64 batches of 4096 frames, twice: with
@@ -59,20 +58,17 @@ Phases:
    each lane's sweeps through its converging check window. The ``kernels``
    line carries the single pass for ``mc_decoder``; its ``max_abs_err`` is
    the largest error of phases 3 (main shapes) and 5. Then the block plans
-   of both kernels with their resident blocks per SM, and the block-plan
-   ladder (``scripts/block_plan_ladder.py``): K1 and K2 at 8, 4, 2 and 1
-   codewords per block on the same inputs, timed, with their block trips
-   and occupancy; every plan must give the same per-frame outputs and
-   ``iters`` equal to the block's largest trip count.
+   of both kernels with their resident blocks per SM.
 6. K3 ``qc_decoder`` (the standalone QC decoder of the unfused path)
    against its plain version at wimax 1152, 4096 frames, on channel LLRs
    made on the card: flooding SPA-16 with the normalized-LLR metric on and
    off, layered SPA-12 serial, layered SPA-12 paired with a check every two
    sweeps, flooding normalized min-sum; decisions, ok, conv, norm and the
    block trip counts must be equal bit for bit. Then ``QC_COVERAGE`` at 512
-   frames: CCSDS n32 flooding and layered (multi-diagonal), row degrees 15,
-   20 and 22, ``skip=1``, the block plans of n=4608 and n=9216 under
-   flooding, and 16-QAM mode-2 LLRs as input.
+   frames: CCSDS n32 flooding and layered (multi-diagonal; 4 and 8
+   codewords sharing a warp), row degrees 15, 20 and 22, ``skip=1``, n=4608
+   and n=9216 under flooding (384 and 768 threads), n=9216 layered paired
+   SPA-12 with a check every two sweeps, and 16-QAM mode-2 LLRs as input.
 7. The unfused path through ``run_simulation``: the burst-interleaver
    configuration at wimax 1152 (16-QAM, mode-2 jamming p 0.15 at -3 dB,
    random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
@@ -88,7 +84,11 @@ Phases:
 9. K3 timed with CUDA events at 4096 frames (flooding SPA-16 at the phase-7
    flooding point, layered SPA-12 at the headline's 5.5 dB point) beside its
    plain version and its bound (the census of the data's sweeps over the
-   issue peak, and the LLRs in plus the decisions out over 3.35 TB/s).
+   issue peak, and the LLRs in plus the decisions out over 3.35 TB/s), with
+   its block plan and resident blocks per SM; then one ``torch.profiler``
+   window of 16 unfused headline batches at 5.5 dB: K3's device ms per batch
+   against the rest of the batch's device time, the batch's device busy
+   time and its host time without the profiler.
 10. The roofline path (K4 ``rate_chain``, K5 ``mix_rate``): every K4 op
    class against its plain version at depth 64 on the card full of
    256-thread blocks (roll and prng bit for bit, the rest within rtol
@@ -251,23 +251,19 @@ def hold_mc(tag: str, mc, dec, wT, consts, **noise):
 
 def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
               iters: int, phase1: int, check_every: int, mode: int = 1,
-              modulation: int = 1, raw=None, lanes=None):
+              modulation: int = 1, raw=None):
     """K1 (``phase1`` iterations, LLRs emitted) with injected words, when
     given, and with Philox noise; then K2 (``iters``) from K1's LLRs with
-    the pre-done mask ``done0``; both at ``lanes`` codewords per block (None:
-    the default plan). Returns the largest error of each."""
+    the pre-done mask ``done0``. Returns the largest error of each."""
     import torch
 
     from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
 
     info_pos = code.standard_encode_spec.info_pos("orig")
-    kw = dict(layer_groups=groups, check_every=check_every, lanes=lanes)
+    kw = dict(layer_groups=groups, check_every=check_every)
     mc = MCDecoder(code.qc, info_pos, phase1, variant, mode=mode,
                    modulation=modulation, emit_llr=True, **kw)
-    p = mc.plan
-    tag = (f"{tag} lanes {p.lanes} ({p.groups} barrier groups of "
-           f"{p.group_threads} threads, {p.cw_per_group} codewords each, "
-           f"{p.padding_threads} padding threads)")
+    tag = f"{tag} ({plan_tag(mc.plan)})"
     dec1 = LLRDecoder(code.qc, info_pos, phase1, variant, **kw)
     llr2 = LLRDecoder(code.qc, info_pos, iters, variant, **kw)
     out = {"mc_decoder": 0.0, "llr_decoder": 0.0}
@@ -290,40 +286,35 @@ def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
 # every code path of the kernels meets its plain version on the card:
 # (code, layer order, variant, channel mode, modulation, iterations, check
 # every, Eb/N0 dB chosen so that some frames converge in phase 1 and some
-# do not, codewords per block: None for the default plan)
+# do not)
 COVERAGE = [
     # multi-diagonal layers (the additive update), kernel row degree 8; Z=4:
-    # 8 codewords share one warp (the default plan), then 2 with 24 padding
-    # threads
+    # 8 codewords share one warp
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "normalized_minsum",
-     1, 1, 12, 2, 2.0, None),
+     1, 1, 12, 2, 2.0),
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "spa", 3, 2, 10, 1,
-     5.0, 2),
+     5.0),
     ("builtin:CCSDS_ldpc_n256_k128.alist.txt", "serial", "offset_minsum", 2,
-     1, 12, 2, 2.5, None),
-    # Z = 16: 2 codewords share a warp, 2 such warps on named barriers
+     1, 12, 2, 2.5),
+    # Z = 16: 2 codewords share a warp
     ("builtin:CCSDS_ldpc_n128_k64.alist.txt", "serial", "normalized_minsum",
-     1, 1, 12, 2, 2.5, 4),
+     1, 1, 12, 2, 2.5),
     # row degree 15 (the 16 instantiation), partial-band, QPSK proxy; 48
     # threads per codeword padded to 64
     ("builtin:wimax_1152_0.75A.alist.txt", "serial", "offset_minsum", 2, 2,
-     12, 2, 7.0, None),
+     12, 2, 7.0),
     # row degree 20 (48 threads padded to 64) and 22 (the 32 instantiation;
-    # 27 threads padded to 32, 2 codewords on 2 named barriers)
+    # 27 threads padded to 32)
     ("builtin:wimax_1152_0.83.alist.txt", "serial", "minsum", 3, 1, 12, 3,
-     3.5, None),
-    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5, 2),
-    # 4, 2 and 1 codewords per block at Z = 96, 192, 384 (paired): 768
-    # threads in 4, 2 and 1 barrier groups
+     3.5),
+    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5),
+    # one codeword of 192, 384 and 768 threads (Z = 96, 192, 384, paired)
     ("builtin:wimax_2304_0.66B.alist.txt", "paired", "normalized_minsum", 3,
-     2, 12, 2, 5.5, 4),
+     2, 12, 2, 5.5),
     ("examples/big_code/wimax_like_n4608_z192.alist.txt", "paired", "minsum",
-     1, 1, 12, 2, 2.0, 2),
+     1, 1, 12, 2, 2.0),
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "paired", "spa", 3,
-     2, 12, 2, 5.5, None),
-    # the bench code at 8 codewords per block (8 named barriers)
-    ("builtin:wimax_1152_0.5.alist.txt", "paired", "normalized_minsum", 1, 1,
-     12, 2, 2.0, 8),
+     2, 12, 2, 5.5),
 ]
 COVER_BATCH = 512
 
@@ -342,7 +333,7 @@ def phase_coverage(dev) -> float:
 
     worst = 0.0
     gen = np.random.default_rng(2)
-    for name, order, variant, mode, modulation, iters, ce, snr, lanes in COVERAGE:
+    for name, order, variant, mode, modulation, iters, ce, snr in COVERAGE:
         code = load_code(name if name.startswith("builtin:")
                          else str(ROOT / name))
         groups = paired_layer_groups(code.qc) if order == "paired" else None
@@ -361,7 +352,7 @@ def phase_coverage(dev) -> float:
                         f"{modulation} ce{ce}", code, groups, variant, wT,
                         consts, done0, iters=iters, phase1=iters // 2,
                         check_every=ce, mode=mode, modulation=modulation,
-                        raw=raw, lanes=lanes)
+                        raw=raw)
         worst = max(worst, *out.values())
     return worst
 
@@ -409,48 +400,34 @@ def phase_fer(batches: int) -> None:
 
 
 def phase_ptxas() -> dict:
-    """Registers and spill bytes of every K1 / K2 instantiation, from the
-    build's ``ptxas -v`` (K3's beside them); fails if a DMAX=8 one spills."""
+    """Registers, barriers and spill bytes of every decode-kernel
+    instantiation (K1, K2, K3), from the build's ``ptxas -v``; fails if a
+    DMAX=8 one spills."""
     from ldpc_tpu_torch.ops import build
 
     rep = build.ptxas_report(build.ptxas_log("mc_decoder"))
-
-    def line(names):
-        return "; ".join(f"{k} {rep[k].get('registers')} registers, "
-                         f"{rep[k].get('barriers')} barriers, spill "
-                         f"stores {rep[k].get('spill_stores')} B, loads "
-                         f"{rep[k].get('spill_loads')} B, stack "
-                         f"{rep[k].get('stack')} B" for k in names)
-
-    fused = sorted(k for k in rep if k.startswith(("mc_decoder_kernel<",
-                                                   "llr_decoder_kernel<")))
-    log(f"ptxas K1/K2: {line(fused)}")
-    log(f"ptxas K3: {line(sorted(k for k in rep if k.startswith('qc_decoder_kernel<')))}")
-    if len(fused) != 12:  # K1, K2 x DMAX 8 / 16 / 32 x one or several groups
-        fail(f"expected 12 K1/K2 instantiations in the ptxas output, found {fused}")
-    for k in fused:
-        if k.split("<")[1].startswith("8,") and (
+    decode = sorted(k for k in rep if k.startswith((
+        "mc_decoder_kernel<", "llr_decoder_kernel<", "qc_decoder_kernel<")))
+    log("ptxas K1/K2/K3: " + "; ".join(
+        f"{k} {rep[k].get('registers')} registers, {rep[k].get('barriers')} "
+        f"barriers, spill stores {rep[k].get('spill_stores')} B, loads "
+        f"{rep[k].get('spill_loads')} B, stack {rep[k].get('stack')} B"
+        for k in decode))
+    # K1, K2 x DMAX 8 / 16 / 32; K3 x DMAX x flooding x flip metric
+    if len(decode) != 18:
+        fail(f"expected 18 decode-kernel instantiations in the ptxas output, "
+             f"found {decode}")
+    for k in decode:
+        if k.split("<")[1].startswith("8") and (
                 rep[k].get("spill_stores") or rep[k].get("spill_loads")):
             fail(f"{k} spills: {rep[k]}")
-    return {k: rep[k] for k in fused}
+    return {k: rep[k] for k in decode}
 
 
-def phase_ladder(dev, smi: str) -> list:
-    """K1 and K2 at 8, 4, 2 and 1 codewords per block on the main path's
-    inputs (``scripts/block_plan_ladder.py``: per-frame outputs equal across
-    plans, ``iters`` the block's largest trip count)."""
-    from ldpc_tpu_torch.scripts.block_plan_ladder import ladder
-
-    rows = ladder(dev)
-    for r in rows:
-        log(f"ladder lanes {r['lanes']} ({smi}): mc_decoder 12 it "
-            f"{r['k1_ms']:.4f} ms, block trips {r['k1_block_trips']:.4f}, "
-            f"{r['k1_threads']} threads, {r['k1_smem']} B, "
-            f"{r['k1_blocks_per_sm']} blocks/SM; llr_decoder {r['k2_ms']:.4f} "
-            f"ms, block trips {r['k2_block_trips']:.4f}, live blocks "
-            f"{r['k2_live_blocks']}, {r['k2_blocks_per_sm']} blocks/SM; lane "
-            f"trips {r['lane_trips_mean']:.4f}")
-    return rows
+def plan_tag(p) -> str:
+    """A block plan in a log line."""
+    return (f"{p.lanes} codeword(s) per block, {p.rows} row(s) per step, "
+            f"{p.threads} threads, {p.padding_threads} padding, {p.smem} B")
 
 
 # ------------------------------------------------------------------- K3 ----
@@ -518,11 +495,15 @@ QC_COVERAGE = [
      False, 4.0, {}, 0),
     # every lane pre-marked done
     (W1152, "flooding", "serial", "spa", 16, 1, True, 2.0, {}, 1),
-    # 2 and 1 codewords per block under flooding (Z = 192, 384)
+    # flooding at Z = 192 and 384 (one codeword of 384 and 768 threads;
+    # n=9216: 208.4 KB of shared memory per block)
     ("examples/big_code/wimax_like_n4608_z192.alist.txt", "flooding",
      "serial", "minsum", 16, 1, True, 2.0, {}, 0),
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "flooding",
      "serial", "spa", 16, 2, False, 1.5, {}, 0),
+    # n=9216 layered paired SPA-12 with a check every two sweeps
+    ("examples/big_code/wimax_like_n9216_z384.alist.txt", "layered",
+     "paired", "spa", 12, 2, False, 2.0, {}, 0),
     # 16-QAM mode-2 LLRs as input
     (W1152, "layered", "paired", "spa", 12, 2, False, 5.5,
      dict(modulation=16, mode=2, p=0.15, interference_snr_db=-3.0), 0),
@@ -563,8 +544,8 @@ def phase_qc_compare(dev):
          1, True, bpsk),
     ):
         dec = qc_decoder_for(code, sched, order, variant, iters, ce, norm)
-        out, e = hold_qc(f"{tag} (lanes {dec.kernel_lanes}, rows "
-                         f"{dec.rows_per_step})", dec, llr)
+        out, e = hold_qc(f"{tag} ({plan_tag(dec.plan)}, "
+                         f"{dec.blocks_per_sm(dev)} blocks/SM)", dec, llr)
         worst = max(worst, e)
         kept[tag] = (dec, llr, out)
     log(f"compare qc_decoder (other configurations, B={COVER_BATCH}):")
@@ -574,7 +555,7 @@ def phase_qc_compare(dev):
         dec = qc_decoder_for(c, sched, order, variant, iters, ce, norm)
         llr = channel_llrs(c, COVER_BATCH, snr, 13, dev, **ch)
         tag = (f"{c.name} {sched} {order} {variant}-{iters} ce{ce} norm {norm} "
-               f"{snr} dB {ch or 'bpsk'} skip {skip} (lanes {dec.kernel_lanes})")
+               f"{snr} dB {ch or 'bpsk'} skip {skip} ({plan_tag(dec.plan)})")
         worst = max(worst, hold_qc(tag, dec, llr, skip)[1])
     return worst, kept
 
@@ -691,6 +672,7 @@ def phase_qc_timing(kept, peak: float):
     import numpy as np
 
     from ldpc_tpu_torch.analysis.roofline import decode_work, init_census, lane_sweeps
+    from ldpc_tpu_torch.ops.decode_loop import block_max_trips
 
     out = {}
     for tag, variant_iters in (("flooding spa-16", 16),
@@ -706,11 +688,57 @@ def phase_qc_timing(kept, peak: float):
         bound, by = bound_ms(ops, 4 * n * B + n * B + 13 * B, peak)
         ms = time_ms(lambda: dec.outputs(llr), reps=20)
         plain = time_ms(lambda: dec.plain_outputs(llr), reps=2, warm=1)
+        # the sweeps a block runs: each codeword's own trips, against the
+        # slowest of 8 in lockstep (the block of the first K3 design)
+        lock = block_max_trips(o[1], o[2], 8, variant_iters)
         log(f"timing qc_decoder {tag} (B={B}): {ms:.4f} ms (plain {plain:.3f} "
             f"ms, bound {bound:.5f} ms by {by}, {ops:.6g} census ops, "
-            f"{int(np.sum(sw))} lane sweeps, lanes per block {dec.kernel_lanes})")
+            f"{int(np.sum(sw))} lane sweeps; {plan_tag(dec.plan)}, "
+            f"{dec.blocks_per_sm(llr.device)} blocks/SM; mean trips per "
+            f"codeword {float(o[4].float().mean()):.4f}, {float(lock.float().mean()):.4f} "
+            f"in lockstep blocks of 8)")
         out[tag] = (ms, plain, bound, by, ops)
     return out
+
+
+def phase_unfused_split(smi: str) -> None:
+    """Phase 9: one ``torch.profiler`` window of 16 unfused headline batches
+    (the burst configuration at 5.5 dB, ``bench.device_breakdown``): K3's
+    device ms per batch against the rest of the batch's device time, the
+    batch's device busy time and span, and its host time without the
+    profiler (CUDA-synchronised host clock over the same 16 batches)."""
+    import torch
+
+    from ldpc_tpu_torch.bench import device_breakdown
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+
+    code = load_code(W1152)
+    opts = SimOptions(matrix=W1152, blocks=QC_BATCHES * BATCH, ber=True,
+                      fer=True, fidelity="exact", speed=0.5, batch=BATCH,
+                      seed=7, **BURST)
+    ex = PointExecutor(code, opts)
+    span, busy, top = device_breakdown(ex, 5.5, batch=BATCH,
+                                       n_batches=QC_BATCHES)
+    ex.run_point(5.5, QC_BATCHES * BATCH, 7777, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.run_point(5.5, QC_BATCHES * BATCH, 7777, 0)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / QC_BATCHES
+    if span is None:
+        log(f"unfused batch split ({smi}): the profiler saw no device "
+            f"events (not measured); host {wall:.4f} ms per batch")
+        return
+    k3 = sum(ms for name, ms, _ in top if "qc_decoder_kernel" in name)
+    rest = sum(ms for name, ms, _ in top if "qc_decoder_kernel" not in name)
+    per = 1.0 / QC_BATCHES
+    log(f"unfused batch split ({smi}; headline 5.5 dB, {QC_BATCHES} batches "
+        f"under torch.profiler): K3 {k3 * per:.4f} ms per batch, the rest "
+        f"{rest * per:.4f} ms ({', '.join(f'{n[:40]} {ms * per:.4f}' for n, ms, _ in top[:6])}); "
+        f"device busy {busy * per:.4f} ms, span {span * per:.4f} ms per "
+        f"batch; without the profiler {wall:.4f} ms per batch on the host "
+        f"clock (device busy {100 * busy * per / wall:.1f}% of it)")
 
 
 # -------------------------------------------------------------- K4 and K5 ----
@@ -1103,10 +1131,9 @@ def main(argv=None) -> int:
         f"{ops1:.6g} census ops, {sw1} lane sweeps); llr_decoder {t_k2:.4f} ms "
         f"(plain {t_p2:.3f} ms, bound {b2:.5f} ms by {by2}, {ops2:.6g} census "
         f"ops, {int(active.sum())} live lanes, {int(sw2.sum())} lane sweeps)")
-    log(f"plans: mc_decoder {mc_full.plan} ({mc_full.blocks_per_sm(dev)} "
-        f"blocks/SM), llr_decoder {llr_dec.plan} ({llr_dec.blocks_per_sm(dev)} "
-        "blocks/SM)")
-    phase_ladder(dev, smi)
+    log(f"plans: mc_decoder {plan_tag(mc_full.plan)} "
+        f"({mc_full.blocks_per_sm(dev)} blocks/SM), llr_decoder "
+        f"{plan_tag(llr_dec.plan)} ({llr_dec.blocks_per_sm(dev)} blocks/SM)")
 
     # ---- 6-9. K3 and the unfused path ----
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
@@ -1115,6 +1142,7 @@ def main(argv=None) -> int:
     qc_err, kept = phase_qc_compare(dev)
     qc_launches, qc_batches = phase_unfused(dev)
     qc_times = phase_qc_timing(kept, peak)
+    phase_unfused_split(smi)
     log(f"qc_decoder launches per batch on the headline run: "
         f"{qc_launches / qc_batches:g}")
 

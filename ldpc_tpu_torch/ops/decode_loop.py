@@ -3,8 +3,8 @@
 Counterpart of ``ldpc_tpu/ops/spa_pallas.py:59-574`` (``make_check_update``
 and ``make_decode_loop``, the body shared by the fused Monte-Carlo kernels
 and the standalone QC decoder). It repeats the CUDA decode loop's arithmetic
-in the same op order (csrc/mc_decoder.cu, ``decode_block`` and
-``flood_sweep``) on ``[n, B]`` tensors, rows ``bj * Z + z``, codewords on the
+in the same op order (csrc/mc_decoder.cu, ``decode_group``) on ``[n, B]``
+tensors, rows ``bj * Z + z``, codewords on the
 minor axis. The CPU tests hold it against the JAX package; on the card
 ``chip_smoke.py`` holds the kernels against it. Nothing on the main path
 calls it when a card is present.
@@ -23,8 +23,9 @@ alpha schedules.
 Every op is per lane, so a lane's trajectory does not depend on the others.
 Only ``iters`` does: the kernel reports to each lane the trip count of its
 block of ``lanes`` codewords, the largest of their trips (each codeword runs
-until it passes a check or the budget ends); this version counts the same
-per-block trips.
+until it passes a check or the budget ends; :func:`block_max_trips`); this
+version reports the same per-block trips. ``lanes`` also models the JAX
+package's tiles (``sim.runner.two_phase_trip_model``).
 """
 
 from __future__ import annotations
@@ -145,6 +146,20 @@ def build_tables(qc: QCLayout, layer_groups=None) -> QCTables:
     return QCTables(qc=qc, groups=tuple(tuple(g) for g in groups),
                     row_off=row_off, slot_col=slot_col,
                     slot_shift=slot_shift, row_dup=row_dup)
+
+
+def block_max_trips(ok, conv, lanes: int, max_it: int, live=None):
+    """Per frame: the largest trip count among the frames of its block of
+    ``lanes`` (a frame's trips: conv + 1 when it converged, else the
+    budget; 0 where ``live`` is given and False: a pre-done frame)."""
+    trips = torch.where(ok, conv.to(torch.int64) + 1, max_it)
+    if live is not None:
+        trips = torch.where(live, trips, 0)
+    B = trips.numel()
+    nb = -(-B // lanes)
+    pad = torch.zeros(nb * lanes - B, dtype=trips.dtype, device=trips.device)
+    blk = torch.cat([trips, pad]).view(nb, lanes).amax(dim=1)
+    return blk.repeat_interleave(lanes)[:B]
 
 
 def check_update(msgs: torch.Tensor, variant: str, alpha: float,
@@ -369,16 +384,9 @@ class DecodeLoop:
         conv = torch.full((B,), -1, dtype=torch.int32, device=dev)
         norm = torch.zeros(B, dtype=torch.float32, device=dev)
         prior = L.index_select(0, self._info) if self.track_norm else None
-        nt = -(-B // self.lanes)
-        pad = nt * self.lanes - B
-        trips = torch.zeros(nt, dtype=torch.int32, device=dev)
         ce = self.check_every
         it = 0
-        while it < self.max_iterations:
-            tile_live = ~torch.nn.functional.pad(done, (0, pad), value=True) \
-                .view(nt, self.lanes).all(dim=1)
-            if not bool(tile_live.any()):
-                break
+        while it < self.max_iterations and not bool(done.all()):
             active = ~done
             for _ in range(ce):
                 if self.flooding:
@@ -396,10 +404,12 @@ class DecodeLoop:
             conv = torch.where(active & ok_now,
                                torch.full_like(conv, it + ce - 1), conv)
             done = done | ok_now
-            trips += ce * tile_live.to(torch.int32)
             it += ce
-        iters = trips.repeat_interleave(self.lanes)[:B]
-        return done, conv, iters, norm
+        # a lane's trips: its check iteration + 1, or the budget; its
+        # block's: the largest among the lanes that ran
+        iters = block_max_trips(done, conv, self.lanes, self.max_iterations,
+                                live=~done0.to(torch.bool))
+        return done, conv, iters.to(torch.int32), norm
 
     def run(self, L: torch.Tensor, done0: torch.Tensor):
         done, conv, iters, _ = self.decode(L, done0)

@@ -12,18 +12,19 @@ Replaces the two Pallas kernels of the JAX package's main path:
 
 Both kernels live in ``csrc/mc_decoder.cu`` and share one ``__device__``
 decode loop (``decode_group``), the counterpart of
-``spa_pallas.make_decode_loop``. What bounds them on the card: instruction
-issue on a chain of dependent layer steps per codeword (a gather along Z,
-SPA's tanh / log / division combine, a scatter, a barrier); the card's
-memory traffic is small (the codeword bits in, five counter rows out, the
-LLRs when emitted). Their design, point by point (the source's note has the
-detail, ``PERF.md`` the time each point bought):
+``spa_pallas.make_decode_loop``, with the standalone QC decoder K3
+(``qc_kernels.py``). What bounds them on the card: instruction issue on a
+chain of dependent layer steps per codeword (a gather along Z, SPA's tanh /
+log / division combine, a scatter, a barrier); the card's memory traffic is
+small (the codeword bits in, five counter rows out, the LLRs when emitted).
+Their design, point by point (the source's note has the detail, ``PERF.md``
+the time each point bought):
 
-1. per-codeword progress: a codeword's threads fill whole warps (or up to 8
-   codewords share a warp where rows x Z < 32), sync on their own barrier
-   and leave once they pass the syndrome check; the block plan
-   (:func:`fused_plan`) is one such group per block, so at the bench code a
-   block is one codeword of 96 threads, 8 resident per SM;
+1. per-codeword progress: a block is one barrier group, one codeword over
+   whole warps (or up to 8 codewords sharing a warp where rows x Z < 32),
+   that leaves once its codewords pass the syndrome check; the block plan
+   (:func:`fused_plan`) is decided once, here: at the bench code a block is
+   one codeword of 96 threads, 8 resident per SM;
 2. no spills at DMAX=8: a 768-thread launch bound (80 registers) and a
    leave-one-out combine that holds 2 x DMAX values;
 3. precomputed gathers: :func:`gather_offsets`, staged in shared memory;
@@ -32,9 +33,6 @@ detail, ``PERF.md`` the time each point bought):
 
 The posteriors L and extrinsics E of a block's codewords stay in shared
 memory for the whole decode (no device-memory traffic per iteration).
-``lanes=`` picks another plan (1, 2, 4 or 8 codewords per block, as the
-block-plan ladder ``scripts/block_plan_ladder.py`` measures them); every
-output but ``iters`` (the block's trips) is the same under any plan.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor (it raises on what the kernel does not take;
@@ -85,7 +83,6 @@ _VARIANT_CODE = {"spa": 0, "minsum": 1, "normalized_minsum": 2,
                  "offset_minsum": 3}
 _DMAX_TEMPLATES = (8, 16, 32)  # kernel instantiations by max row degree
 _SMEM_LIMIT = 225 * 1024  # dynamic shared memory a block may use (H100)
-_MAX_THREADS = 1024
 
 
 # ---------------------------------------------------------------- noise ----
@@ -213,18 +210,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 
-# decode-loop arguments shared by both kernels (see csrc/mc_decoder.cu)
-_LOOP_ARGS = [_P,  # tables
-              _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R lpb B
-              _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
-              _I, _I,  # dmax has_dup
-              _I, _I, _I, _I]  # the FusedPlan: cpg tpg Ls smem
+# decode-loop arguments shared by the three decode kernels (see
+# csrc/mc_decoder.cu): :func:`loop_args`
+LOOP_ARGS = [_P,  # tables
+             _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R B
+             _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
+             _I, _I,  # dmax has_dup
+             _I, _I, _I, _I]  # the FusedPlan: cpg tpg Ls smem
 
 MC_KERNEL = Kernel(
     "mc_decoder", "mc_decoder_launch",
     [_P, _P, _P,  # w, raw, consts
      _P, _P, _P, _P, _P, _P]  # err ok conv norm iters llr_out
-    + _LOOP_ARGS
+    + LOOP_ARGS
     + [_I, _F, _I, _U, _U, _I,  # mode amp noise_input key0 key1 skip
        _I, _P],  # device stream
 )
@@ -232,7 +230,7 @@ LLR_KERNEL = Kernel(
     "mc_decoder", "llr_decoder_launch",
     [_P, _P, _P,  # llr, w, done0
      _P, _P, _P, _P, _P]  # err ok conv norm iters
-    + _LOOP_ARGS
+    + LOOP_ARGS
     + [_I, _P],  # device stream
 )
 
@@ -248,8 +246,9 @@ def kernel_dmax(tables: QCTables) -> int:
 
 
 def table_len(tables: QCTables, flood: bool = False) -> int:
-    """Ints of the schedule tables the kernel stages in shared memory (a
-    flooding schedule has no layer groups and adds the column tables)."""
+    """Ints of the schedule tables the kernels stage in shared memory before
+    the gather offsets (a flooding schedule has no layer groups and adds the
+    column tables)."""
     qc = tables.qc
     if flood:
         return (qc.mb + 1) + 4 * tables.e_slots + qc.mb + (qc.nb + 1)
@@ -261,9 +260,9 @@ def gather_offsets(tables: QCTables) -> np.ndarray:
     """uint16 [e_slots, Z]: the L offset ``slot_col * Z + (z + shift) % Z``
     that check row ``z`` of each flattened edge slot reads and writes (slot
     ``row_off[bi] + j`` is slot ``j`` of base row ``bi``; a layer group's
-    rows are its slots' rows). The fused kernels stage it in shared memory,
-    so an edge costs one table load instead of two plus a multiply and a
-    wrap; the syndrome check reads it too."""
+    rows are its slots' rows). The kernels stage it in shared memory, so an
+    edge costs one table load instead of two plus a multiply and a wrap; the
+    syndrome check reads it too."""
     qc = tables.qc
     if qc.n > np.iinfo(np.uint16).max:
         raise ValueError(f"n={qc.n} does not fit the uint16 gather offsets")
@@ -278,14 +277,13 @@ def gather_words(tables: QCTables) -> int:
     return (tables.e_slots * tables.qc.Z + 1) // 2
 
 
-def kernel_table(tables: QCTables, info_pos, flood: bool = False,
-                 gathers: bool = False) -> np.ndarray:
+def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
     """int32 table the kernels read, in ``csrc/mc_decoder.cu``'s order: row
     offsets, slot columns and shifts, layer groups (padded with -1) and their
     multi-diagonal flags (none under flooding), multi-diagonal rows, the
-    column tables (flooding only), the gather offsets (``gathers``: the fused
-    kernels; :func:`gather_offsets` packed two to an int, low half first),
-    then the info mask [n] (read from device memory, not staged)."""
+    column tables (flooding only), the gather offsets
+    (:func:`gather_offsets` packed two to an int, low half first), then the
+    info mask [n] (read from device memory, not staged)."""
     t = tables
     info_mask = np.zeros(t.qc.n, np.int32)
     info_mask[np.asarray(info_pos, np.int64)] = 1
@@ -300,82 +298,39 @@ def kernel_table(tables: QCTables, info_pos, flood: bool = False,
             [int(any(t.row_dup[bi] for bi in rows)) for rows in t.groups],
             np.int32)
         parts += [groups.ravel(), grp_dup, t.row_dup]
-    if gathers:
-        g = gather_offsets(t).ravel()
-        g = np.concatenate([g, np.zeros(g.size % 2, np.uint16)])
-        parts.append(g.astype("<u2").view("<i4"))
+    g = gather_offsets(t).ravel()
+    g = np.concatenate([g, np.zeros(g.size % 2, np.uint16)])
+    parts.append(g.astype("<u2").view("<i4"))
     return np.concatenate(parts + [info_mask]).astype(np.int32)
 
 
-def smem_bytes(tables: QCTables, lpb: int, flood: bool = False) -> int:
-    """Dynamic shared memory of one K3 block: L, E (and the delta scratch of
-    multi-diagonal layers, or flooding's channel LLRs) for ``lpb``
-    codewords, plus the tables."""
-    qc = tables.qc
-    per_lane = qc.n + tables.e_slots * qc.Z
-    if flood:
-        per_lane += qc.n
-    elif tables.has_dup:
-        per_lane += tables.R * kernel_dmax(tables) * qc.Z
-    return 4 * (lpb * per_lane + table_len(tables, flood))
-
-
-def block_plan(tables: QCTables, flood: bool = False) -> tuple[int, int]:
-    """K3's block (``qc_kernels.QCDecoder``; K1 / K2 take
-    :func:`fused_plan`): (codewords per block, rows per step), the most of
-    8/4/2/1 codewords whose threads (codewords x rows per step x Z) and
-    shared memory fit one block. A layered step runs its layer group's rows; a flooding sweep
-    takes 2 rows per step where the code has them. A code that fits no
-    block raises with its bytes."""
-    qc = tables.qc
-    rows = ((2, 1) if qc.mb >= 2 else (1,)) if flood else (tables.R,)
-    for lpb in (8, 4, 2, 1):
-        for R in rows:
-            if (lpb * R * qc.Z <= _MAX_THREADS
-                    and smem_bytes(tables, lpb, flood) <= _SMEM_LIMIT):
-                return lpb, R
-    raise ValueError(
-        f"code n={qc.n}, Z={qc.Z} does not fit one block of the "
-        f"{'flooding' if flood else 'layered'} decode kernel: one codeword "
-        f"needs {smem_bytes(tables, 1, flood)} bytes of shared memory and "
-        f"{rows[-1] * qc.Z} threads, a block may use {_SMEM_LIMIT} bytes and "
-        f"{_MAX_THREADS} threads"
-    )
-
-
-FUSED_MAX_THREADS = 768  # csrc/mc_decoder.cu: the fused kernels' launch bound
+MAX_THREADS = 768  # csrc/mc_decoder.cu: the decode kernels' launch bound
 
 
 @dataclass(frozen=True)
 class FusedPlan:
-    """The block of the fused kernels (K1, K2). The wrappers pass it to the
-    kernels' entry points, which only validate it (``bad_fused`` in
+    """The block of the decode kernels (K1, K2, K3). The wrappers pass it to
+    the kernels' entry points, which only validate it (``bad_plan`` in
     ``csrc/mc_decoder.cu``: a shared memory size that differs from the
     layout's is refused).
 
-    ``lanes`` codewords per block, in barrier groups of ``cw_per_group``
-    codewords and ``group_threads`` threads (a multiple of 32): one
-    codeword's ``rows x Z`` threads padded to whole warps, or, where
-    ``rows x Z < 32``, up to ``32 // (rows x Z)`` codewords (a power of two)
-    sharing one warp. ``l_stride`` is a codeword's L row in shared memory
-    (n, padded where lanes > 1 so that the lanes of a lane-fastest warp start
-    in different banks); ``smem`` the block's dynamic shared memory."""
+    A block is one barrier group of ``lanes`` codewords and ``threads``
+    threads (a multiple of 32): one codeword's ``rows x Z`` threads padded
+    to whole warps, or, where ``rows x Z < 32``, up to ``32 // (rows x Z)``
+    codewords (a power of two, at most 8) sharing one warp. ``rows`` is the
+    layer group's rows (layered) or 2 check rows per step (flooding, where
+    the code has them). ``l_stride`` is a codeword's L row in shared memory
+    (n, padded where lanes > 1 so that the lanes of a lane-fastest warp
+    start in different banks); ``smem`` the block's dynamic shared
+    memory."""
 
     lanes: int
     rows: int
-    row_threads: int  # rows x Z: the threads of one codeword's layer step
-    cw_per_group: int
-    group_threads: int
+    row_threads: int  # rows x Z: the threads of one codeword's step
+    threads: int
     l_stride: int
+    flood: bool
     smem: int
-
-    @property
-    def groups(self) -> int:
-        return self.lanes // self.cw_per_group
-
-    @property
-    def threads(self) -> int:
-        return self.groups * self.group_threads
 
     @property
     def padding_threads(self) -> int:
@@ -384,70 +339,93 @@ class FusedPlan:
 
     def launch_args(self) -> list:
         """The plan as the entry points take it: cpg, tpg, Ls, smem."""
-        return [self.cw_per_group, self.group_threads, self.l_stride, self.smem]
+        return [self.lanes, self.threads, self.l_stride, self.smem]
 
 
-def fused_smem_bytes(tables: QCTables, lanes: int, l_stride: int) -> int:
-    """Dynamic shared memory of a fused block: L [lanes][l_stride], E
-    [lanes][e_slots * Z], the multi-diagonal deltas [lanes][R * DMAX * Z],
-    then the schedule tables with the gather offsets."""
+def fused_smem_bytes(tables: QCTables, lanes: int, l_stride: int,
+                     flood: bool = False) -> int:
+    """Dynamic shared memory of a block: L [lanes][l_stride], E
+    [lanes][e_slots * Z], the multi-diagonal deltas [lanes][R * DMAX * Z]
+    (layered only), then the schedule tables with the gather offsets. (The
+    flooding schedule's channel LLRs stay in device memory: the source's
+    note has the bytes.)"""
     qc = tables.qc
     per_lane = l_stride + tables.e_slots * qc.Z
-    if tables.has_dup:
+    if tables.has_dup and not flood:
         per_lane += tables.R * kernel_dmax(tables) * qc.Z
-    return 4 * (lanes * per_lane + table_len(tables) + gather_words(tables))
+    return 4 * (lanes * per_lane + table_len(tables, flood)
+                + gather_words(tables))
 
 
-def fused_plan(tables: QCTables, lanes: int | None = None) -> FusedPlan:
-    """The fused kernels' block for ``lanes`` codewords (1, 2, 4 or 8).
-
-    ``None`` takes one barrier group per block: one codeword where a row
-    step fills a warp (``R x Z >= 32``: the bench code's 96 threads), else
-    the codewords that share one warp. A block then holds its SM only while
-    its codewords decode, so a converged codeword frees its place for the
-    next block at once (``PERF.md``: the block-plan ladder). Raises when the
-    plan exceeds the launch bound or the shared memory of a block."""
+def fused_plan(tables: QCTables, flood: bool = False) -> FusedPlan:
+    """The decode kernels' block: one barrier group, one codeword where a
+    step fills a warp (``rows x Z >= 32``: 96 threads at the bench code),
+    else the codewords that share one warp. A block then holds its SM only
+    while its codewords decode, so a converged codeword frees its place for
+    the next block at once (``PERF.md``: the block-plan ladder). A layered
+    step runs its layer group's rows; a flooding step 2 check rows where the
+    code has them (``mb >= 2`` and ``2 x Z`` within the launch bound).
+    Raises, with the bytes, when the block exceeds the launch bound or the
+    shared memory of a block."""
     qc = tables.qc
-    R, Z = tables.R, qc.Z
+    Z = qc.Z
+    if flood:
+        R = 2 if qc.mb >= 2 and 2 * Z <= MAX_THREADS else 1
+    else:
+        R = tables.R
     RZ = R * Z
-    share = 1
-    while 2 * share * RZ <= 32 and 2 * share <= 8:
-        share *= 2
-    if lanes is None:
-        lanes = share
-    if lanes not in (1, 2, 4, 8):
-        raise ValueError(f"lanes={lanes}: the fused kernels take 1, 2, 4 or "
-                         "8 codewords per block")
-    cpg = min(share, lanes)
-    tpg = 32 if RZ < 32 else -(-RZ // 32) * 32
+    lanes = 1
+    while 2 * lanes * RZ <= 32 and 2 * lanes <= 8:
+        lanes *= 2
+    threads = 32 if RZ < 32 else -(-RZ // 32) * 32
     stride = qc.n if lanes == 1 else qc.n + (32 // lanes - qc.n) % 32
-    plan = FusedPlan(lanes=lanes, rows=R, row_threads=RZ, cw_per_group=cpg,
-                     group_threads=tpg, l_stride=stride,
-                     smem=fused_smem_bytes(tables, lanes, stride))
-    if plan.threads > FUSED_MAX_THREADS or plan.smem > _SMEM_LIMIT:
+    plan = FusedPlan(lanes=lanes, rows=R, row_threads=RZ, threads=threads,
+                     l_stride=stride, flood=bool(flood),
+                     smem=fused_smem_bytes(tables, lanes, stride, flood))
+    if plan.threads > MAX_THREADS or plan.smem > _SMEM_LIMIT:
         raise ValueError(
-            f"code n={qc.n}, Z={qc.Z} at lanes={lanes} does not fit one block "
-            f"of the fused kernels: {plan.threads} threads (at most "
-            f"{FUSED_MAX_THREADS}) and {plan.smem} bytes of shared memory (at "
-            f"most {_SMEM_LIMIT})")
+            f"code n={qc.n}, Z={Z} does not fit one block of the "
+            f"{'flooding' if flood else 'layered'} decode kernels: "
+            f"{lanes} codeword(s) need {plan.threads} threads (at most "
+            f"{MAX_THREADS}) and {plan.smem} bytes of shared memory (at most "
+            f"{_SMEM_LIMIT})")
     return plan
 
 
-def fused_blocks_per_sm(tables: QCTables, plan: FusedPlan, device,
-                        llr: bool = False) -> int:
-    """Resident blocks per SM of K1 (K2 with ``llr``) at ``plan``'s launch
-    shape on the card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def loop_args(tables: QCTables, plan: FusedPlan, tab: torch.Tensor, B: int,
+              max_iterations: int, check_every: int, variant: str,
+              alpha: float, beta: float) -> list:
+    """The decode-loop arguments of an entry point (:data:`LOOP_ARGS`)."""
+    qc = tables.qc
+    ngroups = 0 if plan.flood else len(tables.groups)
+    has_dup = 0 if plan.flood else int(tables.has_dup)
+    return [tab.data_ptr(), qc.n, qc.Z, qc.nb, qc.mb, tables.e_slots,
+            ngroups, plan.rows, B, max_iterations, check_every,
+            _VARIANT_CODE[variant], alpha, beta, kernel_dmax(tables), has_dup,
+            *plan.launch_args()]
+
+
+# kernel kinds of csrc/mc_decoder.cu's decoder_occupancy
+K_MC, K_LLR, K_QC = 0, 1, 2
+
+
+def blocks_per_sm(kind: int, tables: QCTables, plan: FusedPlan, device,
+                  norm: bool = False) -> int:
+    """Resident blocks per SM of K1 (``kind`` :data:`K_MC`), K2
+    (:data:`K_LLR`) or K3 (:data:`K_QC`; the plan's schedule, ``norm``: the
+    flip metric compiled in) at ``plan``'s launch shape on the card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from ldpc_tpu_torch.ops.build import load
 
-    fn = load("mc_decoder").fused_occupancy
-    fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn = load("mc_decoder").decoder_occupancy
+    fn.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = _I
     blocks = _I(0)
     with torch.cuda.device(device):
-        rc = fn(int(llr), kernel_dmax(tables), int(plan.groups == 1),
+        rc = fn(kind, kernel_dmax(tables), int(plan.flood), int(norm),
                 plan.threads, plan.smem, ctypes.byref(blocks))
     if rc:
-        raise RuntimeError(f"fused_occupancy failed (cudaError {rc})")
+        raise RuntimeError(f"decoder_occupancy failed (cudaError {rc})")
     return blocks.value
 
 
@@ -457,7 +435,7 @@ class _FusedBase:
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str, *, alpha: float, beta: float, schedule: str,
-                 layer_groups, check_every: int, lanes: int | None = None):
+                 layer_groups, check_every: int):
         if schedule != "layered":
             raise NotImplementedError(
                 f"schedule {schedule!r}: the port's fused kernels run the "
@@ -476,16 +454,15 @@ class _FusedBase:
                 f"max_iterations={max_iterations}"
             )
         self.info_pos = np.asarray(info_pos, np.int64)
-        self.plan = fused_plan(self.tables, lanes)
+        self.plan = fused_plan(self.tables)
         self.lanes = self.plan.lanes
-        self._dmax = kernel_dmax(self.tables)
         self._per_device: dict = {}
 
     def blocks_per_sm(self, device) -> int:
         """Resident blocks per SM of this decoder's kernel at its launch
         shape (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-        return fused_blocks_per_sm(self.tables, self.plan, device,
-                                   llr=isinstance(self, LLRDecoder))
+        return blocks_per_sm(K_LLR if isinstance(self, LLRDecoder) else K_MC,
+                             self.tables, self.plan, device)
 
     def _dev(self, device: torch.device):
         """(plain decode loop, info index, kernel tables) for one device."""
@@ -498,8 +475,8 @@ class _FusedBase:
             self._per_device[key] = (
                 loop,
                 torch.as_tensor(self.info_pos, device=device),
-                torch.as_tensor(kernel_table(self.tables, self.info_pos,
-                                             gathers=True), device=device),
+                torch.as_tensor(kernel_table(self.tables, self.info_pos),
+                                device=device),
             )
         return self._per_device[key]
 
@@ -510,12 +487,9 @@ class _FusedBase:
         return (est != x).sum(dim=0).to(torch.int32)
 
     def _loop_args(self, tab: torch.Tensor, B: int) -> list:
-        t, qc = self.tables, self.qc
-        return [tab.data_ptr(), qc.n, qc.Z, qc.nb, qc.mb, t.e_slots,
-                len(t.groups), t.R, self.lanes, B, self.max_iterations,
-                self.check_every, _VARIANT_CODE[self.variant], self.alpha,
-                self.beta, self._dmax, int(t.has_dup),
-                *self.plan.launch_args()]
+        return loop_args(self.tables, self.plan, tab, B, self.max_iterations,
+                         self.check_every, self.variant, self.alpha,
+                         self.beta)
 
     @staticmethod
     def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -549,27 +523,24 @@ class MCDecoder(_FusedBase):
     Returns ``(err, ok, conv, norm, iters)``: int32 / bool / int32 / f32 /
     int32 [B]; ``err`` counts info-bit mismatches in every frame (callers
     apply the failed-frames rule); ``conv`` is the check iteration of
-    convergence or -1; ``norm`` is zeros (the metric is not ported);
+    convergence or -1; ``norm`` is zeros (the metric is K3's only);
     ``iters`` is the trip count of the lane's block (the largest of its
-    codewords'). ``emit_llr`` appends the channel LLRs, f32 [n, B] in the
-    log(p0/p1) domain. ``lanes``: codewords per block (None: the default
-    :func:`fused_plan`), which changes ``iters`` only.
+    codewords', its own at one codeword per block). ``emit_llr`` appends
+    the channel LLRs, f32 [n, B] in the log(p0/p1) domain.
     """
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str = "spa", *, mode: int = 1, modulation: int = 1,
                  alpha: float = 0.75, beta: float = 0.15,
                  schedule: str = "layered", emit_llr: bool = False,
-                 layer_groups=None,
-                 check_every: int = 1, lanes: int | None = None):
+                 layer_groups=None, check_every: int = 1):
         if mode not in DRAWS_PER_BIT:
             raise ValueError(f"Unknown channel mode: {mode}")
         if modulation not in (1, 2):
             raise ValueError("MC kernel supports modulation 1 (BPSK) / 2 (QPSK proxy)")
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every,
-                         lanes=lanes)
+                         layer_groups=layer_groups, check_every=check_every)
         self.mode, self.modulation = mode, modulation
         self.amp = 1.0 if modulation == 1 else 0.7
         self.emit_llr = emit_llr
@@ -638,7 +609,7 @@ class LLRDecoder(_FusedBase):
     log(p0/p1) domain (as :class:`MCDecoder` emits them), ``wT`` f32 [n, B]
     transmitted bits in the same lane order, ``done0`` f32 [B] with 1.0
     pre-marking a lane done: its LLRs are not read and its outputs are
-    placeholders (ok, conv -1, no errors). Outputs and ``lanes`` as for
+    placeholders (ok, conv -1, no errors). Outputs as for
     :class:`MCDecoder`; a block whose codewords are all pre-done only writes
     its placeholders.
     """
@@ -646,12 +617,10 @@ class LLRDecoder(_FusedBase):
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str = "spa", *, alpha: float = 0.75,
                  beta: float = 0.15, schedule: str = "layered",
-                 layer_groups=None,
-                 check_every: int = 1, lanes: int | None = None):
+                 layer_groups=None, check_every: int = 1):
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every,
-                         lanes=lanes)
+                         layer_groups=layer_groups, check_every=check_every)
 
     def __call__(self, llrT, wT, done0):
         if llrT.device.type == "cpu":

@@ -9,17 +9,25 @@ layered (serial or paired groups, ``check_every``) or the flooding schedule
 and returns the hard decisions, ok, the convergence iteration, the
 normalized-LLR flip metric and the trip count.
 
-The kernel (``qc_decoder_kernel`` in ``csrc/mc_decoder.cu``) shares the
-``decode_block`` device loop of the fused kernels. What bounds it on the
-card: as for them, a chain of dependent steps per codeword (a layer, or a
-flooding sweep's check then posterior phase), each a gather along Z, a
-leave-one-out combine and a scatter with a block barrier between; its
-device-memory traffic is the LLRs in and the decisions out. So it is bound
-by operations and by the latency of those steps. The design keeps a block's
-posteriors L, extrinsics E and, under flooding, the channel LLRs (which every
-flooding sweep restarts from) in shared memory for the whole decode; the flip
-metric's previous posteriors, read once per check, stay in device memory. A
-code whose block does not fit raises with its bytes; it never decodes
+The kernel (``qc_decoder_kernel`` in ``csrc/mc_decoder.cu``) runs the
+``decode_group`` body of the fused kernels K1 / K2, with the flooding
+schedule and the flip metric brought into it. What bounds it on the card: as
+for them, a chain of dependent steps per codeword (a layer, or a flooding
+sweep's check then posterior phase), each a gather along Z, a leave-one-out
+combine and a scatter with a barrier between; its device-memory traffic is
+the LLRs in and the decisions out. So it is bound by operations and by the
+latency of those steps. Its design is theirs (the source's note has the
+detail): a block is one barrier group (:func:`~mc_kernels.fused_plan`: one
+codeword of 96 threads at WiMAX 1152 paired or flooding, 64 serial; the
+codewords that share a warp at small Z) that leaves once its codewords pass
+the syndrome check; no spills at row degree 8; the gather offsets staged in
+shared memory; the block's codewords, adjacent rows of the [B, n] LLRs and
+decisions, read and written as one contiguous range. A block's posteriors L
+and extrinsics E stay in shared memory for the whole decode; the channel
+LLRs that every flooding sweep restarts from are read from the input in
+device memory, and the flip metric's previous posteriors are an internal
+[B, n] buffer there. The flip metric is compiled in only where it is used.
+A code whose block does not fit raises with its bytes; it never decodes
 wrong.
 
 The wrapper takes its plain version for a tensor on the CPU and launches the
@@ -38,10 +46,12 @@ from ldpc_tpu_torch.models.qc import QCLayout
 from ldpc_tpu_torch.ops.build import Kernel
 from ldpc_tpu_torch.ops.decode_loop import DecodeLoop, build_tables, normalize_variant
 from ldpc_tpu_torch.ops.mc_kernels import (
-    _VARIANT_CODE,
-    block_plan,
-    kernel_dmax,
+    K_QC,
+    LOOP_ARGS,
+    blocks_per_sm,
+    fused_plan,
     kernel_table,
+    loop_args,
 )
 from ldpc_tpu_torch.ops.spa import DecodeResult
 
@@ -52,12 +62,10 @@ _F = ctypes.c_float
 QC_KERNEL = Kernel(
     "mc_decoder", "qc_decoder_launch",
     [_P, _P,  # llr, prior
-     _P, _P, _P, _P, _P,  # est ok conv norm iters
-     _P,  # tables
-     _I, _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R lpb B
-     _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
-     _I, _I, _I, _I, _I, _I,  # dmax has_dup flood track_norm k skip
-     _I, _P],  # device stream
+     _P, _P, _P, _P, _P]  # est ok conv norm iters
+    + LOOP_ARGS
+    + [_I, _I, _I, _I,  # flood track_norm k skip
+       _I, _P],  # device stream
 )
 
 
@@ -69,8 +77,10 @@ class QCDecoder:
     the parity rule is the exact one. ``skip`` nonzero pre-marks every lane
     done (the loop exits before iteration 0; outputs are placeholders).
     ``info_pos`` locates the info bits the normalized-LLR metric counts
-    (``track_norm``). The plain version runs blocks of the kernel's width,
-    so even the per-codeword trip counts of :meth:`outputs` agree.
+    (``track_norm``). ``plan`` is the kernel's block
+    (:func:`~mc_kernels.fused_plan`); the plain version runs blocks of its
+    ``lanes`` codewords, so even the per-codeword trip counts of
+    :meth:`outputs` agree.
     """
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
@@ -105,10 +115,15 @@ class QCDecoder:
         self.alpha, self.beta = float(alpha), float(beta)
         self.check_every = int(check_every)
         self.info_pos = np.asarray(info_pos, np.int64)
-        self.kernel_lanes, self.rows_per_step = block_plan(self.tables,
-                                                           self.flood)
-        self._dmax = kernel_dmax(self.tables)
+        self.plan = fused_plan(self.tables, self.flood)
+        self.lanes = self.plan.lanes
         self._per_device: dict = {}
+
+    def blocks_per_sm(self, device) -> int:
+        """Resident blocks per SM of the kernel at its launch shape
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        return blocks_per_sm(K_QC, self.tables, self.plan, device,
+                             norm=self.track_norm)
 
     def _dev(self, device):
         """(plain decode loop, kernel tables) for one device."""
@@ -118,7 +133,7 @@ class QCDecoder:
             loop = DecodeLoop(self.tables, self.max_iterations, self.variant,
                               alpha=self.alpha, beta=self.beta,
                               check_every=self.check_every,
-                              lanes=self.kernel_lanes, device=device,
+                              lanes=self.lanes, device=device,
                               schedule=self.schedule,
                               track_norm=self.track_norm,
                               info_pos=self.info_pos)
@@ -137,7 +152,8 @@ class QCDecoder:
 
     def outputs(self, llr: torch.Tensor, skip=None):
         """``(est, ok, conv, norm, iters)``: uint8 [B, n], bool, int32, f32
-        and int32 [B] (``iters`` is the trip count of the lane's block)."""
+        and int32 [B] (``iters`` is the trip count of the codeword's block,
+        its own at one codeword per block)."""
         if llr.device.type == "cpu":
             return self.plain_outputs(llr, skip)
         if llr.device.type != "cuda":
@@ -180,20 +196,18 @@ class QCDecoder:
         iters = torch.empty(B, dtype=torch.int32, device=dev)
         if B == 0:  # nothing to launch
             return est, ok, conv, norm, iters
-        prior = (torch.empty((n, B), dtype=torch.float32, device=dev)
+        # the flip metric's previous posteriors, codeword-major
+        prior = (torch.empty((B, n), dtype=torch.float32, device=dev)
                  if self.track_norm else None)
-        t, qc = self.tables, self.qc
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             QC_KERNEL(
                 llr.data_ptr(), None if prior is None else prior.data_ptr(),
                 est.data_ptr(), ok.data_ptr(), conv.data_ptr(),
-                norm.data_ptr(), iters.data_ptr(), tab.data_ptr(),
-                qc.n, qc.Z, qc.nb, qc.mb, t.e_slots,
-                0 if self.flood else len(t.groups), self.rows_per_step,
-                self.kernel_lanes, B, self.max_iterations, self.check_every,
-                _VARIANT_CODE[self.variant], self.alpha, self.beta,
-                self._dmax, 0 if self.flood else int(t.has_dup),
+                norm.data_ptr(), iters.data_ptr(),
+                *loop_args(self.tables, self.plan, tab, B,
+                           self.max_iterations, self.check_every,
+                           self.variant, self.alpha, self.beta),
                 int(self.flood), int(self.track_norm), int(self.info_pos.size),
                 int(_skip(skip)), dev.index, stream,
             )

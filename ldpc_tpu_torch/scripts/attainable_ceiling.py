@@ -56,7 +56,7 @@ def k1_launch(code, base: dict, sm_count: int,
               blocks_per_sm) -> tuple[int, int]:
     """(blocks, threads) of K1's launch shape for the mix probe: K1's plan
     at ``blocks_per_sm(tables, plan)`` resident blocks per SM (on the card,
-    ``mc_kernels.fused_blocks_per_sm``)."""
+    ``mc_kernels.blocks_per_sm``)."""
     from ldpc_tpu_torch.ops.decode_loop import build_tables
     from ldpc_tpu_torch.ops.mc_kernels import fused_plan
     from ldpc_tpu_torch.sim.runner import resolve_layer_groups
@@ -119,7 +119,7 @@ def main(argv=None) -> int:
         full_occupancy_launch,
         measure_mix_rate,
     )
-    from ldpc_tpu_torch.ops.mc_kernels import fused_blocks_per_sm
+    from ldpc_tpu_torch.ops.mc_kernels import K_MC, blocks_per_sm
     from ldpc_tpu_torch.sim.runner import load_code
 
     out = Path(args.out)
@@ -143,7 +143,7 @@ def main(argv=None) -> int:
     full = full_occupancy_launch(dev)
     k1 = k1_launch(code, base,
                    torch.cuda.get_device_properties(dev).multi_processor_count,
-                   lambda t, p: fused_blocks_per_sm(t, p, dev))
+                   lambda t, p: blocks_per_sm(K_MC, t, p, dev))
     ladders = {"full": {}, "k1": {}}
     for s in streams:
         for shape, launch in (("full", full), ("k1", k1)):

@@ -96,20 +96,21 @@ def test_multi_diagonal_additive_update_exact():
 
 def test_multi_diagonal_tables():
     from ldpc_tpu_torch.ops.decode_loop import build_tables
-    from ldpc_tpu_torch.ops.mc_kernels import block_plan, fused_plan, smem_bytes
+    from ldpc_tpu_torch.ops.mc_kernels import fused_plan, gather_words, table_len
 
     ref_code = JCode(alist=jstd.make_builtin(CCSDS), name=CCSDS)
     code = code_from_numpy(ref_code.n, ref_code.m, ref_code.H.row_idx,
                            ref_code.H.col_idx, CCSDS)
     t = build_tables(code.qc)
     assert t.has_dup and t.row_dup.all() and t.R == 1 and t.dmax == 8
-    # the delta scratch of multi-diagonal rows is part of the block's plan,
-    # in K1 / K2's (fused_plan) and in K3's (block_plan)
+    # the delta scratch of multi-diagonal rows is part of the layered
+    # block's plan (K1, K2 and K3 layered), not of the flooding one (K3)
     qc = code.qc
     per_lane = qc.n + t.e_slots * qc.Z + t.R * 8 * qc.Z
     plan = fused_plan(t)
     assert plan.smem > 4 * plan.lanes * per_lane
-    lanes = block_plan(t)[0]
-    assert smem_bytes(t, lanes) > 4 * lanes * per_lane
+    flood = fused_plan(t, flood=True)
+    assert flood.smem == 4 * (flood.lanes * (flood.l_stride + t.e_slots * qc.Z)
+                              + table_len(t, True) + gather_words(t))
     with pytest.raises(ValueError, match="disjoint"):
         build_tables(code.qc, [[0, 1], [2], [3]])

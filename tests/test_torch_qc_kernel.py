@@ -1,8 +1,10 @@
 """The standalone QC decoder's plain version (``QCDecoder`` on the CPU)
 against the JAX package: the interpret-mode ``spa_pallas.make_qc_decoder``
 for what only the kernel has (paired layers with a syndrome check every two
-sweeps, and ``skip``), the jnp layered decoder for the layered schedule with
-the flip metric, and the kernel's block plans."""
+sweeps, and ``skip``) and for the plain loop at the kernel's block (one
+codeword, or the codewords that share a warp) under both schedules with the
+flip metric, the jnp layered decoder for the layered schedule with the flip
+metric, and the kernel's block plans."""
 
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from ldpc_tpu.models.code import LDPCCode as JCode
 from ldpc_tpu.models.qc import paired_layer_groups
 from ldpc_tpu.ops.layered import make_qc_layered_decoder
 from ldpc_tpu.ops.spa_pallas import make_qc_decoder
-from ldpc_tpu_torch.ops.decode_loop import build_tables
-from ldpc_tpu_torch.ops.mc_kernels import block_plan, smem_bytes
+from ldpc_tpu_torch.ops import mc_kernels as mk
+from ldpc_tpu_torch.ops.decode_loop import block_max_trips, build_tables
+from ldpc_tpu_torch.ops.mc_kernels import fused_plan
 from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
 from ldpc_tpu_torch.utils.carry import code_from_numpy
 
@@ -29,11 +32,11 @@ WIMAX = "wimax_576_0.5.alist.txt"
 B = 128
 
 
-def _case(name: str, ebno_db: float, seed: int):
+def _case(name: str, ebno_db: float, seed: int, batch: int = B):
     ref = JCode(alist=jstd.make_builtin(name), name=name)
     port = code_from_numpy(ref.n, ref.m, ref.H.row_idx, ref.H.col_idx, name)
     rng = np.random.default_rng(seed)
-    u = rng.integers(0, 2, (B, ref.k), dtype=np.uint8)
+    u = rng.integers(0, 2, (batch, ref.k), dtype=np.uint8)
     w = ref.standard_encode_spec.encode_numpy(u, "orig").astype(np.float64)
     sigma = 1.0 / np.sqrt(2 * ref.k / ref.n * 10 ** (ebno_db / 10))
     llr = (2 * ((2 * w - 1) + sigma * rng.standard_normal(w.shape))
@@ -89,11 +92,14 @@ def test_layered_with_flip_metric_matches_reference(variant):
 def test_block_plans_and_options():
     code = code_from_numpy(*_dims("wimax_1152_0.5.alist.txt"))
     t = build_tables(code.qc)
-    # flooding keeps the channel LLRs beside L and E: 8 codewords still fit
-    assert block_plan(t, flood=True) == (8, 2)
-    assert block_plan(t) == (8, 1)
-    assert smem_bytes(t, 8, flood=True) - smem_bytes(t, 8) == \
-        4 * (8 * code.n + (code.qc.nb + 1) + 2 * t.e_slots - len(t.groups) * 2)
+    # one codeword per block: flooding's 2 rows per step, serial's 1 (48 of
+    # 64 threads); the channel LLRs stay in device memory, so flooding adds
+    # only its column tables and drops the layer groups
+    flood, serial = fused_plan(t, flood=True), fused_plan(t)
+    assert (flood.lanes, flood.rows, flood.threads) == (1, 2, 96)
+    assert (serial.lanes, serial.rows, serial.threads) == (1, 1, 64)
+    assert flood.smem - serial.smem == \
+        4 * ((code.qc.nb + 1) + 2 * t.e_slots - len(t.groups) * 2)
     info = code.standard_encode_spec.info_pos("orig")
     with pytest.raises(ValueError, match="track_norm"):
         QCDecoder(code.qc, info, 12, "spa", schedule="layered", check_every=2)
@@ -116,22 +122,76 @@ def test_big_codes_fit_or_raise_with_their_bytes():
     from ldpc_tpu_torch.models.qc import detect_qc
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for name, flood_plan in (("wimax_like_n4608_z192.alist.txt", (2, 2)),
-                             ("wimax_like_n9216_z384.alist.txt", (1, 2))):
+    # (threads, bytes): L + E + the gather offsets + the tables of one
+    # codeword; the n=9216 flooding block is 208.4 KB of the 225 KB limit
+    for name, flood_plan in (("wimax_like_n4608_z192.alist.txt", (384, 107400)),
+                             ("wimax_like_n9216_z384.alist.txt", (768, 213384))):
         qc = detect_qc(read_alist(os.path.join(root, "examples", "big_code",
                                                name)))
-        assert block_plan(build_tables(qc), flood=True) == flood_plan
+        p = fused_plan(build_tables(qc), flood=True)
+        assert (p.lanes, p.rows) == (1, 2)
+        assert (p.threads, p.smem) == flood_plan
     huge = code_from_numpy(*_dims("wimax_2304_0.5.alist.txt"))
     t = build_tables(huge.qc)
-    import ldpc_tpu_torch.ops.mc_kernels as mk
-
+    need = fused_plan(t, flood=True).smem
     limit = mk._SMEM_LIMIT
     try:
-        mk._SMEM_LIMIT = smem_bytes(t, 1, flood=True) - 1
-        with pytest.raises(ValueError, match=r"needs \d+ bytes"):
-            block_plan(t, flood=True)
+        mk._SMEM_LIMIT = need - 1
+        with pytest.raises(ValueError, match=rf"{need} bytes of shared memory"):
+            fused_plan(t, flood=True)
     finally:
         mk._SMEM_LIMIT = limit
+
+
+# the plain loop at the kernel's block against the interpret-mode kernel:
+# (code, schedule, layer order, variant, iterations, check every,
+# track_norm, Eb/N0 dB); WiMAX 576 is one codeword per block (64 threads),
+# CCSDS n32 4 (flooding) or 8 (layered) codewords sharing one warp
+AT_PLAN = [
+    (WIMAX, "flooding", "serial", "normalized_minsum", 10, 1, True, 1.5),
+    (WIMAX, "flooding", "serial", "spa", 10, 1, True, 1.5),
+    ("CCSDS_ldpc_n32_k16.alist.txt", "flooding", "serial", "minsum", 10, 1,
+     True, 3.0),
+    (WIMAX, "layered", "paired", "normalized_minsum", 12, 2, False, 1.5),
+    (WIMAX, "layered", "paired", "spa", 12, 2, False, 1.5),
+]
+
+
+@pytest.mark.parametrize(
+    "name,schedule,order,variant,iters,ce,norm,ebno", AT_PLAN,
+    ids=[f"{c[0][:6]}-{c[1]}-{c[3]}" for c in AT_PLAN])
+def test_plain_loop_at_the_kernels_block(name, schedule, order, variant,
+                                         iters, ce, norm, ebno):
+    """est, ok and conv of every frame equal the interpret-mode kernel's
+    (SPA: on >= 99% of frames, tanh and log differ by ulps between
+    libraries), norm within 1e-6, and each frame's ``iters`` is its block's
+    trips: at one codeword per block its own."""
+    ref, port, llr = _case(name, ebno, 5, batch=64)
+    info = ref.standard_encode_spec.info_pos("orig")
+    kw = dict(schedule=schedule, track_norm=norm, check_every=ce,
+              layer_groups=paired_layer_groups(ref.qc) if order == "paired"
+              else None)
+    r = _np(jax.jit(make_qc_decoder(ref.qc, info, iters, variant,
+                                    interpret=True, **kw))(jnp.asarray(llr)))
+    dec = QCDecoder(port.qc, port.standard_encode_spec.info_pos("orig"), iters,
+                    variant, **kw)
+    est, ok, conv, nrm, it = (x.numpy() for x in dec.outputs(torch.from_numpy(llr)))
+    same = (est == r[0]).all(axis=1) & (ok == r[1]) & (conv == r[2])
+    if variant == "spa":
+        assert same.mean() >= 0.99, np.nonzero(~same)[0].tolist()
+    else:
+        assert same.all(), np.nonzero(~same)[0].tolist()
+    np.testing.assert_allclose(nrm[same], r[3][same], rtol=0, atol=1e-6)
+    if norm:
+        assert (nrm > 0).any()
+    own = np.where(ok, conv + 1, iters)
+    want = block_max_trips(torch.from_numpy(ok), torch.from_numpy(conv),
+                           dec.lanes, iters).numpy()
+    np.testing.assert_array_equal(it, want)
+    if dec.lanes == 1:
+        np.testing.assert_array_equal(it, own)
+    assert int(it.max()) == r[4]
+    assert 0 < ok.sum() < len(ok)
 
 
 def _dims(name):
