@@ -10,11 +10,13 @@ Phases:
 
 1. CUDA present; the card's name and power limit (``nvidia-smi``).
 2. Build the kernels from ``ldpc_tpu_torch/csrc`` (one ``nvcc`` per source,
-   started together) and print the build time; then one line with the
-   registers, barriers and spill bytes ``ptxas`` reports for each of the 18
-   decode-kernel instantiations (K1 and K2 at row degrees 8 / 16 / 32, K3
-   at each of them x layered / flooding x with / without the flip metric),
-   failing if a DMAX=8 instantiation spills.
+   started together: K1, K2 and K3 one source each over
+   ``decode_group.cuh``, and the roofline probes) and print the build time;
+   then one line with the registers, barriers and spill bytes ``ptxas``
+   reports for each of the 72 decode-kernel instantiations (K1, K2 and K3
+   at row degrees 8 / 16 / 32 x layered / flooding x with / without the
+   flip metric x f32 / int8 E), failing if a DMAX=8 instantiation spills or
+   takes more than 80 registers.
 3. Hold each kernel against its plain version on the card, at the main
    path's shapes (WiMAX (1152, 576), 4096 frames, paired layers, a syndrome
    check every two sweeps), for normalized min-sum and SPA:
@@ -34,7 +36,10 @@ Phases:
    offset min-sum, channel modes 2 and 3, the QPSK proxy, serial layers,
    check every 1 and 3, and the block plans: 8 and 2 codewords sharing one
    warp (Z = 4 and 16), padding threads (48 and 27 threads per codeword),
-   one codeword of 192, 384 and 768 threads (Z = 96, 192, 384).
+   one codeword of 192, 384 and 768 threads (Z = 96, 192, 384); flooding
+   with and without the flip metric (the flip metric equal too), 4
+   codewords sharing a warp, n=4608 and n=9216; int8 E on multi-diagonal and paired layers and under
+   flooding; a [T, D] and a [T] alpha schedule.
 4. The main path: ``PointExecutor`` at the settings of the headline bench
    (layered SPA, 12 iterations, paired, check every 2) through
    ``run_point(2.0, ...)`` for 64 batches of 4096 frames, twice: with
@@ -46,6 +51,11 @@ Phases:
    lane by lane, so their counters must be equal. FER must lie within 5
    standard errors of 0.0065, the JAX package's FER at this point
    (``BENCH_r04.json``), used as a statistic of the code, not as a speed.
+   4b. The fused flooding path (the CLI's default schedule): flooding
+   SPA-16 at 2.0 dB, 64 batches, a single pass and the split forced at 8,
+   the counts zeroed before each and read after (K1 in both, K2 in the
+   split, K3 never); equal counters; FER within 5 combined standard errors
+   of ``examples/decoder_variants/sumproduct.json`` (225 / 8,192).
 5. The main path's own kernel calls (SPA, Philox noise): ``mc_decoder`` as
    ``auto`` launches it at this point (12 iterations, one pass) and as
    phase 1 of a split, ``llr_decoder`` on that phase 1's compacted output,
@@ -59,6 +69,12 @@ Phases:
    line carries the single pass for ``mc_decoder``; its ``max_abs_err`` is
    the largest error of phases 3 (main shapes) and 5. Then the block plans
    of both kernels with their resident blocks per SM.
+   5b. The decoders' options held against their plain versions
+   and timed beside them, their bounds and blocks per SM: K1 flooding
+   SPA-16 with and without the flip metric; K2 flooding on a forced split;
+   K1 layered paired
+   NMS-12 ce2 with a scalar, a [T] and a [T, D] alpha; K3 flooding NMS-16
+   with f32 and int8 E at WiMAX 1152 and n=9216.
 6. K3 ``qc_decoder`` (the standalone QC decoder of the unfused path)
    against its plain version at wimax 1152, 4096 frames, on channel LLRs
    made on the card: flooding SPA-16 with the normalized-LLR metric on and
@@ -74,13 +90,24 @@ Phases:
    random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
    batches of 4096; its JSON written and read back; K3 must launch once per
    batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
-   BPSK, at 2.0 dB over 64 batches.
+   BPSK, at 2.0 dB over 64 batches, through K3 (``fused='off'``: K3 once
+   per batch) and through the fused kernels (``auto``, then ``--two-phase
+   off``: K1, never K3), each with its info bits/s; then where the time of
+   the two routes goes: for K3, fused ``off`` and fused ``auto``, the
+   ``PointExecutor`` set-up, a first ``run_point`` of 64 batches (``auto``'s
+   probe included) and a second one on the same executor.
 8. FER against the JAX package's TPU records, as statistics of the code:
    the flooding run of phase 7 against ``examples/decoder_variants/
    sumproduct.json`` (225 / 8,192 at 2.0 dB), and the burst configuration at
    wimax 576, 6.0 dB, 16 batches, against ``examples/burst_interleaver/
    results.json`` (``random``: 801 / 14,336); each within 5 combined
-   standard errors.
+   standard errors. 8b. The fused kernels' new configurations against their
+   records: the learned [T] schedule through fused flooding NMS-12 at wimax
+   576, 2.0 dB (``examples/learned_minsum/results.json``: 0.15137 of
+   40,960; the scalar 0.75 gives 0.19700) and int8 E through fused flooding
+   NMS-20 at wimax 1152, 2.0 dB (``examples/quantized_messages/RESULTS.md``
+   ``nms-int8msg``: 3.208e-02 of 40,000), 16 batches each, within 5
+   combined standard errors.
 9. K3 timed with CUDA events at 4096 frames (flooding SPA-16 at the phase-7
    flooding point, layered SPA-12 at the headline's 5.5 dB point) beside its
    plain version and its bound (the census of the data's sweeps over the
@@ -125,8 +152,8 @@ SNR_DB = 2.0
 REF_FER = 0.0065  # BENCH_r04.json, paired + ce2, 2 dB (a code statistic)
 MAIN_BATCHES = 64
 PHASE1, ITERS, CHECK_EVERY = 6, 12, 2
-SOURCE = "ldpc_tpu_torch/csrc/mc_decoder.cu"
-ROOFLINE_SOURCE = "ldpc_tpu_torch/csrc/roofline.cu"
+CSRC = "ldpc_tpu_torch/csrc/"
+ROOFLINE_SOURCE = CSRC + "roofline.cu"
 ROOF_BENCH_BATCHES = 64  # batches per window of the roofline path's bench
 COMPARE_DEPTH = 64  # K4 bodies when held against the plain version
 K4_TIME_DEPTH, K5_TIME_PASSES, K5_TIME_STREAMS = 4096, 64, 8
@@ -189,27 +216,30 @@ def sync() -> None:
 
 
 def frames_equal(a, b):
-    """bool [B]: err, ok, conv and iters agree per frame."""
-    err_a, ok_a, conv_a, _, it_a = a[:5]
-    err_b, ok_b, conv_b, _, it_b = b[:5]
-    return (err_a == err_b) & (ok_a == ok_b) & (conv_a == conv_b) & (it_a == it_b)
+    """bool [B]: err, ok, conv, norm (the flip metric, an integer count over
+    k, or zeros) and iters agree per frame."""
+    err_a, ok_a, conv_a, norm_a, it_a = a[:5]
+    err_b, ok_b, conv_b, norm_b, it_b = b[:5]
+    return (err_a == err_b) & (ok_a == ok_b) & (conv_a == conv_b) \
+        & (norm_a == norm_b) & (it_a == it_b)
 
 
 def int_max_abs(a, b) -> float:
+    """The largest gap of err / ok / conv / norm / iters over all frames."""
     import torch
 
-    return float(max((x.to(torch.int64) - y.to(torch.int64)).abs().max().item()
-                     for x, y in zip(a[:5], b[:5]) if x.dtype != torch.float32))
+    return float(max((x.to(torch.float64) - y.to(torch.float64)).abs().max().item()
+                     for x, y in zip(a[:5], b[:5])))
 
 
 def compare(name: str, variant: str, kern, plain, bar_note: str) -> float:
     """Kernel outputs against the plain version's: exact for the min-sum
     family, >= 99% of frames for SPA. Returns the largest gap of err / ok /
-    conv / iters over all frames."""
+    conv / norm / iters over all frames."""
     same = frames_equal(kern, plain)
     frac = float(same.float().mean())
     gap = int_max_abs(kern, plain)
-    log(f"  {name}: frames equal {frac:.6f} ({bar_note}), max |int diff| "
+    log(f"  {name}: frames equal {frac:.6f} ({bar_note}), max |diff| "
         f"{gap:g}, kernel's frames converged {float(kern[1].float().mean()):.4f}")
     if variant == "spa":
         if frac < 0.99:
@@ -251,16 +281,16 @@ def hold_mc(tag: str, mc, dec, wT, consts, **noise):
 
 def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
               iters: int, phase1: int, check_every: int, mode: int = 1,
-              modulation: int = 1, raw=None):
+              modulation: int = 1, raw=None, **options):
     """K1 (``phase1`` iterations, LLRs emitted) with injected words, when
     given, and with Philox noise; then K2 (``iters``) from K1's LLRs with
-    the pre-done mask ``done0``. Returns the largest error of each."""
-    import torch
-
+    the pre-done mask ``done0``. ``options``: the decoders' schedule,
+    track_norm, msg_store and alpha. Returns the largest error of
+    each."""
     from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
 
     info_pos = code.standard_encode_spec.info_pos("orig")
-    kw = dict(layer_groups=groups, check_every=check_every)
+    kw = dict(layer_groups=groups, check_every=check_every, **options)
     mc = MCDecoder(code.qc, info_pos, phase1, variant, mode=mode,
                    modulation=modulation, emit_llr=True, **kw)
     tag = f"{tag} ({plan_tag(mc.plan)})"
@@ -282,39 +312,73 @@ def hold_pair(tag: str, code, groups, variant: str, wT, consts, done0, *,
     return out
 
 
+# alpha schedules: [T, D] for codes of two row degrees (WiMAX rate 1/2: 6
+# and 7) and [T], each shorter than the budget, so that its last value
+# repeats (alpha[min(it, T-1)])
+ALPHA_TD = ((0.65, 0.62), (0.75, 0.70), (0.79, 0.71), (0.80, 0.77),
+            (0.83, 0.78), (0.81, 0.80))
+ALPHA_T = (0.64, 0.73, 0.77, 0.78, 0.80, 0.80, 0.81, 0.81, 0.82)
+CCSDS32 = "builtin:CCSDS_ldpc_n32_k16.alist.txt"
+N4608 = "examples/big_code/wimax_like_n4608_z192.alist.txt"
+N9216 = "examples/big_code/wimax_like_n9216_z384.alist.txt"
+
 # configurations the main path does not run, held at a small batch so that
 # every code path of the kernels meets its plain version on the card:
-# (code, layer order, variant, channel mode, modulation, iterations, check
-# every, Eb/N0 dB chosen so that some frames converge in phase 1 and some
-# do not)
+# (code, layer order or "flooding", variant, channel mode, modulation,
+# iterations, check every, Eb/N0 dB chosen so that some frames converge in
+# phase 1 and some do not, the decoders' other options)
 COVERAGE = [
     # multi-diagonal layers (the additive update), kernel row degree 8; Z=4:
     # 8 codewords share one warp
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "normalized_minsum",
-     1, 1, 12, 2, 2.0),
+     1, 1, 12, 2, 2.0, {}),
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "serial", "spa", 3, 2, 10, 1,
-     5.0),
+     5.0, {}),
     ("builtin:CCSDS_ldpc_n256_k128.alist.txt", "serial", "offset_minsum", 2,
-     1, 12, 2, 2.5),
+     1, 12, 2, 2.5, {}),
     # Z = 16: 2 codewords share a warp
     ("builtin:CCSDS_ldpc_n128_k64.alist.txt", "serial", "normalized_minsum",
-     1, 1, 12, 2, 2.5),
+     1, 1, 12, 2, 2.5, {}),
     # row degree 15 (the 16 instantiation), partial-band, QPSK proxy; 48
     # threads per codeword padded to 64
     ("builtin:wimax_1152_0.75A.alist.txt", "serial", "offset_minsum", 2, 2,
-     12, 2, 7.0),
+     12, 2, 7.0, {}),
     # row degree 20 (48 threads padded to 64) and 22 (the 32 instantiation;
     # 27 threads padded to 32)
     ("builtin:wimax_1152_0.83.alist.txt", "serial", "minsum", 3, 1, 12, 3,
-     3.5),
-    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5),
+     3.5, {}),
+    ("builtin:wifi_648_r083.alist.txt", "serial", "spa", 2, 2, 12, 2, 8.5, {}),
     # one codeword of 192, 384 and 768 threads (Z = 96, 192, 384, paired)
     ("builtin:wimax_2304_0.66B.alist.txt", "paired", "normalized_minsum", 3,
-     2, 12, 2, 5.5),
+     2, 12, 2, 5.5, {}),
     ("examples/big_code/wimax_like_n4608_z192.alist.txt", "paired", "minsum",
-     1, 1, 12, 2, 2.0),
+     1, 1, 12, 2, 2.0, {}),
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "paired", "spa", 3,
-     2, 12, 2, 5.5),
+     2, 12, 2, 5.5, {}),
+    # flooding (K1, K2): with and without the flip metric, 4 codewords
+    # sharing a warp (CCSDS n32), one codeword of 384 and 768 threads
+    # (n=4608, n=9216)
+    (W1152, "flooding", "spa", 1, 1, 16, 1, 2.0, dict(track_norm=True)),
+    (W1152, "flooding", "spa", 1, 2, 16, 2, 2.0, {}),
+    (W1152, "flooding", "normalized_minsum", 2, 1, 16, 1, 2.5,
+     dict(track_norm=True)),
+    (W1152, "flooding", "offset_minsum", 3, 1, 16, 2, 2.5, {}),
+    (CCSDS32, "flooding", "minsum", 1, 1, 12, 1, 3.0, dict(track_norm=True)),
+    (N4608, "flooding", "normalized_minsum", 1, 1, 16, 1, 2.0,
+     dict(track_norm=True)),
+    (N9216, "flooding", "spa", 1, 1, 16, 2, 1.5, {}),
+    # int8 E on the min-sum family: multi-diagonal layers, paired layers,
+    # flooding with the flip metric
+    (CCSDS32, "serial", "normalized_minsum", 1, 1, 12, 2, 2.0,
+     dict(msg_store="int8")),
+    (W1152, "paired", "minsum", 1, 1, 12, 2, 2.5, dict(msg_store="int8")),
+    (W1152, "flooding", "normalized_minsum", 1, 1, 20, 1, 2.0,
+     dict(msg_store="int8", track_norm=True)),
+    # alpha schedules: [T, D] layered, [T] flooding with int8 E
+    (W1152, "paired", "normalized_minsum", 1, 1, 12, 2, 2.0,
+     dict(alpha=ALPHA_TD)),
+    (W1152, "flooding", "normalized_minsum", 1, 1, 12, 1, 2.0,
+     dict(alpha=ALPHA_T, msg_store="int8")),
 ]
 COVER_BATCH = 512
 
@@ -333,10 +397,12 @@ def phase_coverage(dev) -> float:
 
     worst = 0.0
     gen = np.random.default_rng(2)
-    for name, order, variant, mode, modulation, iters, ce, snr in COVERAGE:
+    for (name, order, variant, mode, modulation, iters, ce, snr,
+         options) in COVERAGE:
         code = load_code(name if name.startswith("builtin:")
                          else str(ROOT / name))
         groups = paired_layer_groups(code.qc) if order == "paired" else None
+        schedule = "flooding" if order == "flooding" else "layered"
         u = torch.from_numpy(gen.integers(0, 2, (COVER_BATCH, code.k),
                                           dtype=np.uint8)).to(dev)
         wT = make_encoder_T(code.standard_encode_spec, "orig", dev)(u)
@@ -349,10 +415,11 @@ def phase_coverage(dev) -> float:
         done0 = torch.from_numpy(
             (gen.random(COVER_BATCH) < 0.5).astype(np.float32)).to(dev)
         out = hold_pair(f"{code.name} {order} {variant} mode {mode} mod "
-                        f"{modulation} ce{ce}", code, groups, variant, wT,
-                        consts, done0, iters=iters, phase1=iters // 2,
-                        check_every=ce, mode=mode, modulation=modulation,
-                        raw=raw)
+                        f"{modulation} ce{ce} {options or ''}", code, groups,
+                        variant, wT, consts, done0, iters=iters,
+                        phase1=iters // 2, check_every=ce, mode=mode,
+                        modulation=modulation, raw=raw, schedule=schedule,
+                        **options)
         worst = max(worst, *out.values())
     return worst
 
@@ -399,13 +466,19 @@ def phase_fer(batches: int) -> None:
                 f"frame_errors={errors} FER={fer:.6f} se={se:.6f}")
 
 
+DECODE_LIBRARIES = ("mc_decoder", "llr_decoder", "qc_decoder")
+
+
 def phase_ptxas() -> dict:
     """Registers, barriers and spill bytes of every decode-kernel
-    instantiation (K1, K2, K3), from the build's ``ptxas -v``; fails if a
-    DMAX=8 one spills."""
+    instantiation (K1, K2, K3: <DMAX, flooding, flip metric, int8 E>), from
+    the builds' ``ptxas -v``; fails if a DMAX=8 one spills or takes more
+    than 80 registers."""
     from ldpc_tpu_torch.ops import build
 
-    rep = build.ptxas_report(build.ptxas_log("mc_decoder"))
+    rep = {}
+    for lib in DECODE_LIBRARIES:
+        rep.update(build.ptxas_report(build.ptxas_log(lib)))
     decode = sorted(k for k in rep if k.startswith((
         "mc_decoder_kernel<", "llr_decoder_kernel<", "qc_decoder_kernel<")))
     log("ptxas K1/K2/K3: " + "; ".join(
@@ -413,21 +486,23 @@ def phase_ptxas() -> dict:
         f"barriers, spill stores {rep[k].get('spill_stores')} B, loads "
         f"{rep[k].get('spill_loads')} B, stack {rep[k].get('stack')} B"
         for k in decode))
-    # K1, K2 x DMAX 8 / 16 / 32; K3 x DMAX x flooding x flip metric
-    if len(decode) != 18:
-        fail(f"expected 18 decode-kernel instantiations in the ptxas output, "
-             f"found {decode}")
+    # K1, K2, K3 x DMAX 8 / 16 / 32 x flooding x flip metric x int8 E
+    if len(decode) != 72:
+        fail(f"expected 72 decode-kernel instantiations in the ptxas output, "
+             f"found {len(decode)}: {decode}")
     for k in decode:
-        if k.split("<")[1].startswith("8") and (
-                rep[k].get("spill_stores") or rep[k].get("spill_loads")):
-            fail(f"{k} spills: {rep[k]}")
+        if k.split("<")[1].startswith("8,") and (
+                rep[k].get("spill_stores") or rep[k].get("spill_loads")
+                or rep[k].get("registers", 0) > 80):
+            fail(f"{k} spills or exceeds 80 registers: {rep[k]}")
     return {k: rep[k] for k in decode}
 
 
 def plan_tag(p) -> str:
     """A block plan in a log line."""
     return (f"{p.lanes} codeword(s) per block, {p.rows} row(s) per step, "
-            f"{p.threads} threads, {p.padding_threads} padding, {p.smem} B")
+            f"{p.threads} threads, {p.padding_threads} padding, {p.smem} B"
+            + (", int8 E" if p.int8 else ""))
 
 
 # ------------------------------------------------------------------- K3 ----
@@ -479,45 +554,54 @@ def hold_qc(tag: str, dec, llr, skip: int = 0):
 
 # K3 configurations beyond the main cases, at 512 frames: (code, schedule,
 # layer order, variant, iterations, check every, track_norm, Eb/N0 dB,
-# channel, skip)
+# channel, skip, the decoder's alpha / msg_store)
 QC_COVERAGE = [
     # multi-diagonal (two circulants in one base column): both schedules
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "flooding", "serial",
-     "normalized_minsum", 12, 1, True, 3.0, {}, 0),
+     "normalized_minsum", 12, 1, True, 3.0, {}, 0, {}),
     ("builtin:CCSDS_ldpc_n32_k16.alist.txt", "layered", "serial", "spa", 10,
-     1, True, 3.0, {}, 0),
+     1, True, 3.0, {}, 0, {}),
     # row degree 15 (the 16 instantiation), 20 and 22 (the 32 one)
     ("builtin:wimax_1152_0.75A.alist.txt", "flooding", "serial",
-     "offset_minsum", 16, 1, True, 3.0, {}, 0),
+     "offset_minsum", 16, 1, True, 3.0, {}, 0, {}),
     ("builtin:wimax_1152_0.83.alist.txt", "layered", "serial", "minsum", 12,
-     3, False, 3.5, {}, 0),
+     3, False, 3.5, {}, 0, {}),
     ("builtin:wifi_648_r083.alist.txt", "flooding", "serial", "spa", 16, 2,
-     False, 4.0, {}, 0),
+     False, 4.0, {}, 0, {}),
     # every lane pre-marked done
-    (W1152, "flooding", "serial", "spa", 16, 1, True, 2.0, {}, 1),
+    (W1152, "flooding", "serial", "spa", 16, 1, True, 2.0, {}, 1, {}),
     # flooding at Z = 192 and 384 (one codeword of 384 and 768 threads;
     # n=9216: 208.4 KB of shared memory per block)
     ("examples/big_code/wimax_like_n4608_z192.alist.txt", "flooding",
-     "serial", "minsum", 16, 1, True, 2.0, {}, 0),
+     "serial", "minsum", 16, 1, True, 2.0, {}, 0, {}),
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "flooding",
-     "serial", "spa", 16, 2, False, 1.5, {}, 0),
+     "serial", "spa", 16, 2, False, 1.5, {}, 0, {}),
     # n=9216 layered paired SPA-12 with a check every two sweeps
     ("examples/big_code/wimax_like_n9216_z384.alist.txt", "layered",
-     "paired", "spa", 12, 2, False, 2.0, {}, 0),
+     "paired", "spa", 12, 2, False, 2.0, {}, 0, {}),
     # 16-QAM mode-2 LLRs as input
     (W1152, "layered", "paired", "spa", 12, 2, False, 5.5,
-     dict(modulation=16, mode=2, p=0.15, interference_snr_db=-3.0), 0),
+     dict(modulation=16, mode=2, p=0.15, interference_snr_db=-3.0), 0, {}),
+    # int8 E at n=9216, layered paired normalized min-sum
+    (N9216, "layered", "paired", "normalized_minsum", 12, 2, False, 2.0, {}, 0,
+     dict(msg_store="int8")),
+    # a [T] schedule under flooding with the flip metric; a [T, D] one with
+    # int8 E, layered serial
+    (W1152, "flooding", "serial", "normalized_minsum", 16, 1, True, 2.0, {}, 0,
+     dict(alpha=ALPHA_T)),
+    (W1152, "layered", "serial", "normalized_minsum", 12, 1, True, 2.0, {}, 0,
+     dict(alpha=ALPHA_TD, msg_store="int8")),
 ]
 
 
-def qc_decoder_for(code, schedule, order, variant, iters, ce, norm):
+def qc_decoder_for(code, schedule, order, variant, iters, ce, norm, **options):
     from ldpc_tpu_torch.models.qc import paired_layer_groups
     from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
 
     groups = paired_layer_groups(code.qc) if order == "paired" else None
     return QCDecoder(code.qc, code.standard_encode_spec.info_pos("orig"),
                      iters, variant, schedule=schedule, track_norm=norm,
-                     layer_groups=groups, check_every=ce)
+                     layer_groups=groups, check_every=ce, **options)
 
 
 def phase_qc_compare(dev):
@@ -550,12 +634,14 @@ def phase_qc_compare(dev):
         kept[tag] = (dec, llr, out)
     log(f"compare qc_decoder (other configurations, B={COVER_BATCH}):")
     for (name, sched, order, variant, iters, ce, norm, snr, ch,
-         skip) in QC_COVERAGE:
+         skip, options) in QC_COVERAGE:
         c = load_code(name if name.startswith("builtin:") else str(ROOT / name))
-        dec = qc_decoder_for(c, sched, order, variant, iters, ce, norm)
+        dec = qc_decoder_for(c, sched, order, variant, iters, ce, norm,
+                             **options)
         llr = channel_llrs(c, COVER_BATCH, snr, 13, dev, **ch)
         tag = (f"{c.name} {sched} {order} {variant}-{iters} ce{ce} norm {norm} "
-               f"{snr} dB {ch or 'bpsk'} skip {skip} ({plan_tag(dec.plan)})")
+               f"{snr} dB {ch or 'bpsk'} skip {skip} {options or ''} "
+               f"({plan_tag(dec.plan)})")
         worst = max(worst, hold_qc(tag, dec, llr, skip)[1])
     return worst, kept
 
@@ -568,8 +654,10 @@ def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, floa
 
 
 def phase_unfused(dev):
-    """Phases 7 and 8: the unfused path through ``run_simulation``.
-    Returns K3's launches on the headline run and its per-batch count."""
+    """Phases 7 and 8: the unfused path through ``run_simulation``, and the
+    CLI's default flooding configuration both through K3 (``fused='off'``)
+    and through the fused kernels. Returns K3's launches on the headline run
+    and its per-batch count."""
     import torch
 
     from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
@@ -582,9 +670,11 @@ def phase_unfused(dev):
     out_dir.mkdir(parents=True, exist_ok=True)
     code = load_code(W1152)
 
-    def sweep(tag, kind, batches, initial, end, step, **kw):
+    def sweep(tag, kind, batches, initial, end, step, via_fused=False, **kw):
         """``run_simulation`` over the points, its own per-point lines
-        (FER, BER, codewords/s and info bits/s) in the log."""
+        (FER, BER, codewords/s and info bits/s) in the log; K3 must launch
+        once per batch and K1 / K2 never, or, ``via_fused``, K1 must launch
+        and K3 never."""
         opts = SimOptions(matrix=W1152, blocks=batches * BATCH, ber=True,
                           fer=True, fidelity="exact", speed=0.5, batch=BATCH,
                           seed=7, initial_snr=initial, end_snr=end,
@@ -622,6 +712,10 @@ def phase_unfused(dev):
             f"{frames * code.k / elapsed:.6g} info bits/s; device "
             f"{res.config.device}; launches {launches} over {n_batches} "
             "batches")
+        if via_fused:
+            if launches["mc_decoder"] < n_batches or launches["qc_decoder"]:
+                fail(f"{tag}: the fused path launched {launches}")
+            return res, launches["mc_decoder"], n_batches
         if launches["qc_decoder"] != n_batches:
             fail(f"{tag}: qc_decoder launched {launches['qc_decoder']} times "
                  f"for {n_batches} batches")
@@ -639,10 +733,18 @@ def phase_unfused(dev):
         fail(f"headline FER does not fall with SNR: "
              f"{[p.fer for p in head.snr_points]}")
 
-    # the CLI's default schedule: flooding SPA-16, BPSK, fused 'auto'
+    # the CLI's default schedule: flooding SPA-16, BPSK, through K3
+    # (fused='off') and through the fused kernels (fused 'auto')
     flood, _, _ = sweep("flooding", "cuda", FLOOD_BATCHES, SNR_DB, SNR_DB,
                         1.0, schedule="flooding", decoder="sumproduct",
-                        iterations=16)
+                        iterations=16, fused="off")
+    sweep("flooding fused", "cuda+fused+2phase(auto)", FLOOD_BATCHES, SNR_DB,
+          SNR_DB, 1.0, via_fused=True, schedule="flooding", decoder="sumproduct",
+          iterations=16)
+    sweep("flooding fused off", "cuda+fused", FLOOD_BATCHES, SNR_DB, SNR_DB,
+          1.0, via_fused=True, schedule="flooding", decoder="sumproduct",
+          iterations=16, two_phase="off")
+    flooding_routes(code)
     pt = flood.snr_points[0]
     gap, bar = five_se(pt.failed_blocks, pt.total_blocks, REF_FLOOD)
     log(f"fer check flooding spa-16 2.0 dB: {pt.failed_blocks}/"
@@ -664,6 +766,40 @@ def phase_unfused(dev):
     if gap > bar:
         fail("burst FER outside 5 combined standard errors of the TPU's")
     return head_launches, head_batches
+
+
+def flooding_routes(code) -> None:
+    """Where the time of the flooding SPA-16 sweep goes on each route (K3
+    through ``fused='off'``, fused ``--two-phase off``, fused ``auto``): the
+    ``PointExecutor`` set-up (``auto`` measures the split's overhead there),
+    a first ``run_point`` of the point's batches (``auto`` probes there) and
+    a second on the same executor, each closed by a device sync."""
+    import torch
+
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor
+
+    bits = FLOOD_BATCHES * BATCH * code.k
+    for tag, kw in (("K3 fused=off", dict(fused="off")),
+                    ("fused two_phase=off", dict(two_phase="off")),
+                    ("fused two_phase=auto", {})):
+        opts = SimOptions(matrix=W1152, fidelity="exact", speed=0.5,
+                          batch=BATCH, seed=7, schedule="flooding",
+                          decoder="sumproduct", iterations=16, quiet=True, **kw)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        ex = PointExecutor(code, opts)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for _ in range(2):
+            ex.run_point(SNR_DB, FLOOD_BATCHES * BATCH, 7, 0)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        setup, first, second = (b - a for a, b in zip(t, t[1:]))
+        log(f"flooding route {tag} ({ex.kernel_used}): set-up {setup:.5f} s, "
+            f"first run_point {first:.5f} s ({bits / first:.6g} info bits/s), "
+            f"second {second:.5f} s ({bits / second:.6g} info bits/s), "
+            f"set-up + first {bits / (setup + first):.6g} info bits/s")
 
 
 def phase_qc_timing(kept, peak: float):
@@ -934,6 +1070,235 @@ def phase_roofline(dev, smi: str, peak: float) -> dict:
     }
 
 
+
+# ------------------------ the decoders' options: flooding, int8, alpha ----
+
+# the JAX package's records for the fused kernels' new configurations
+# (statistics of the code, not speeds): the learned [T] schedule at wimax
+# 576, 2.0 dB (examples/learned_minsum/results.json, 0.15137 of 40,960), and
+# int8 E, flooding normalized min-sum 20 iterations at wimax 1152, 2.0 dB
+# (examples/quantized_messages/RESULTS.md, nms-int8msg 3.208e-02 of 40,000)
+LEARNED = ROOT / "examples" / "learned_minsum" / "results.json"
+REF_INT8 = (round(3.208e-2 * 40000), 40000)
+FER_BATCHES = 16
+
+
+def int8_ops(qc) -> float:
+    """Census ops the int8 grid adds to a sweep of one frame: ``E_quantize``
+    on each edge's one E write (clip 2, multiply, round, multiply back), in
+    either schedule. The converts of E's reads and of its store are the
+    int8 storage's, not the function's, and are not counted."""
+    return 5 * sum(len(r) for r in qc.row_slots()) * qc.Z
+
+
+def phase_fused_flooding(code, dev) -> dict:
+    """Phase 4b: the fused flooding path (the CLI's default schedule), SPA-16
+    at 2.0 dB, 64 batches of 4096, a single pass then the split forced at 8
+    phase-1 sweeps; the launch counts zeroed just before each run and read
+    just after (K1 in both, K2 in the split, K3 never); equal counters; the
+    FER within 5 combined standard errors of the TPU's flooding record.
+    Returns the launches."""
+    import torch
+
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor
+
+    runs, launches = {}, {"mc_decoder": 0, "llr_decoder": 0}
+    for two_phase in ("off", "8"):
+        ex = PointExecutor(code, SimOptions(
+            matrix=code.name, iterations=16, fidelity="exact", batch=BATCH,
+            seed=0, speed=0.5, schedule="flooding", decoder="sumproduct",
+            two_phase=two_phase))
+        ex.run_point(SNR_DB, BATCH, point_index=99)  # warm
+        for kern in (MC_KERNEL, LLR_KERNEL, QC_KERNEL):
+            kern.launches = 0
+        t0 = time.perf_counter()
+        st = ex.run_point(SNR_DB, FLOOD_BATCHES * BATCH)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        run = {"mc_decoder": MC_KERNEL.launches,
+               "llr_decoder": LLR_KERNEL.launches,
+               "qc_decoder": QC_KERNEL.launches}
+        log(f"fused flooding spa-16 two_phase={two_phase}: {st.blocks} frames "
+            f"in {elapsed:.4f} s = {st.blocks * code.k / elapsed:.6g} info "
+            f"bits/s, FER {st.fer_frames / st.blocks:.6f}, kernel "
+            f"{ex.kernel_used}, launches {run}")
+        if run["mc_decoder"] < FLOOD_BATCHES or run["qc_decoder"] or (
+                two_phase != "off" and run["llr_decoder"] < 1):
+            fail(f"fused flooding {two_phase}: launches {run}")
+        for name in launches:
+            launches[name] += run[name]
+        runs[two_phase] = st
+    if runs["off"] != runs["8"]:
+        fail(f"fused flooding: the dispatch modes disagree: {runs}")
+    st = runs["off"]
+    gap, bar = five_se(st.fer_frames, st.blocks, REF_FLOOD)
+    log(f"fer check fused flooding spa-16 2.0 dB: {st.fer_frames}/{st.blocks} "
+        f"= {st.fer_frames / st.blocks:.6f} vs TPU {REF_FLOOD[0]}/"
+        f"{REF_FLOOD[1]}: |diff| {gap:.6f}, 5 se {bar:.6f}")
+    if gap > bar:
+        fail("fused flooding FER outside 5 combined standard errors of the TPU's")
+    return launches
+
+
+def timed(tag, call, plain, ops, nbytes, peak, blocks, out, reps=20):
+    """Time a kernel call and its plain version; log and keep (ms, plain
+    ms, bound ms, bound by, census ops, blocks/SM) under ``tag``."""
+    ms = time_ms(call, reps=reps)
+    pms = time_ms(plain, reps=2, warm=1)
+    bound, by = bound_ms(ops, nbytes, peak)
+    log(f"timing {tag}: {ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.5f} ms "
+        f"by {by}, {ops:.6g} census ops; {blocks} blocks/SM)")
+    out[tag] = (ms, pms, bound, by, ops, blocks)
+
+
+def phase_options_timing(code, dev, wT, consts, peak) -> dict:
+    """Phase 5b: the new configurations of K1 / K2 / K3 held against their
+    plain versions, then timed beside them and their bounds, with their
+    resident blocks per SM: K1 flooding SPA-16 at 2.0 dB with and without
+    the flip metric; K2 flooding on the
+    split forced at 8; K1 layered paired NMS-12 ce2 with the scalar alpha,
+    a [T] and a [T, D] schedule; K3 flooding NMS-16 with f32 and int8 E at
+    WiMAX 1152 (4096 frames) and n=9216 (1024 frames)."""
+    import torch
+
+    from ldpc_tpu_torch.analysis.roofline import (
+        channel_census,
+        counter_census,
+        decode_work,
+        init_census,
+        lane_sweeps,
+    )
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+    from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    info = code.standard_encode_spec.info_pos("orig")
+    n, B = code.n, wT.shape[1]
+    key = (0x13198A2E, 0x03707344)
+    out, err = {}, {"mc_decoder": 0.0, "llr_decoder": 0.0, "qc_decoder": 0.0}
+    log("compare and time the decoders' options (wimax 1152, "
+        f"B={B}):")
+
+    def k1_ops(o, variant, schedule, max_it, ce=1, norm=False, q8=False):
+        sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), max_it)
+        ops = decode_work(code.qc, variant, schedule, sweeps=sw,
+                          check_every=ce, track_norm=norm)
+        ops += float(sw.sum()) * (int8_ops(code.qc) if q8 else 0)
+        return ops + B * channel_census(code.qc).total()
+
+    # K1 flooding SPA-16, with and without the flip metric
+    for norm in (False, True):
+        mc = MCDecoder(code.qc, info, 16, "spa", schedule="flooding",
+                       track_norm=norm)
+        tag = (f"mc_decoder flooding spa-16{' norm' if norm else ''} "
+               f"({plan_tag(mc.plan)})")
+        o, e = hold_mc(tag, mc, None, wT, consts, seeds=key)
+        err["mc_decoder"] = max(err["mc_decoder"], e)
+        timed(tag, lambda: mc(wT, consts, seeds=key),
+              lambda: mc.plain(wT, consts, seeds=key),
+              k1_ops(o, "spa", "flooding", 16, norm=norm),
+              4 * n * B + 32 + 17 * B, peak, mc.blocks_per_sm(dev), out)
+
+    # K2 flooding on the forced split (phase 1: 8 sweeps)
+    mc1 = MCDecoder(code.qc, info, 8, "spa", schedule="flooding",
+                    emit_llr=True)
+    k2 = LLRDecoder(code.qc, info, 16, "spa", schedule="flooding")
+    o1 = mc1(wT, consts, seeds=key)
+    order = torch.argsort(o1[1].to(torch.int32), stable=True)
+    llr_s = o1[5].index_select(1, order)
+    w_s = wT.index_select(1, order)
+    done0 = o1[1].index_select(0, order).to(torch.float32)
+    o2 = k2(llr_s, w_s, done0)
+    sync()
+    tag = f"llr_decoder flooding spa-16 split at 8 ({plan_tag(k2.plan)})"
+    err["llr_decoder"] = compare(tag, "spa", o2, k2.plain(llr_s, w_s, done0),
+                                 "compacted phase 1")
+    live = done0.cpu().numpy() < 0.5
+    sw2 = lane_sweeps(o2[1].cpu().numpy()[live], o2[2].cpu().numpy()[live], 16)
+    ops2 = decode_work(code.qc, "spa", "flooding", sweeps=sw2) + int(
+        live.sum()) * (init_census(code.qc) + counter_census(code.qc)).total()
+    timed(tag, lambda: k2(llr_s, w_s, done0),
+          lambda: k2.plain(llr_s, w_s, done0), ops2,
+          4 * n * 2 * int(live.sum()) + 21 * B, peak, k2.blocks_per_sm(dev),
+          out)
+
+    # K1 layered paired NMS-12 ce2: the scalar alpha, a [T], a [T, D]
+    groups = paired_layer_groups(code.qc)
+    for name, alpha in (("scalar 0.75", 0.75), ("[T]", ALPHA_T),
+                        ("[T, D]", ALPHA_TD)):
+        mc = MCDecoder(code.qc, info, ITERS, "normalized_minsum",
+                       layer_groups=groups, check_every=CHECK_EVERY,
+                       alpha=alpha)
+        tag = f"mc_decoder layered paired nms-12 ce2 alpha {name}"
+        o, e = hold_mc(tag, mc, None, wT, consts, seeds=key)
+        err["mc_decoder"] = max(err["mc_decoder"], e)
+        timed(tag, lambda: mc(wT, consts, seeds=key),
+              lambda: mc.plain(wT, consts, seeds=key),
+              k1_ops(o, "normalized_minsum", "layered", ITERS, ce=CHECK_EVERY),
+              4 * n * B + 32 + 17 * B, peak, mc.blocks_per_sm(dev), out)
+
+    # K3 flooding NMS-16, f32 and int8 E, at 1152 and n=9216
+    big = load_code(str(ROOT / N9216))
+    for c, batch, snr in ((code, BATCH, SNR_DB), (big, 1024, 1.5)):
+        llr = channel_llrs(c, batch, snr, 21, dev)
+        for store in ("f32", "int8"):
+            dec = qc_decoder_for(c, "flooding", "serial", "normalized_minsum",
+                                 16, 1, False, msg_store=store)
+            tag = (f"qc_decoder flooding nms-16 {store} E n={c.n} B={batch} "
+                   f"({plan_tag(dec.plan)})")
+            o, e = hold_qc(tag, dec, llr)
+            err["qc_decoder"] = max(err["qc_decoder"], e)
+            sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), 16)
+            ops = decode_work(c.qc, "normalized_minsum", "flooding",
+                              sweeps=sw) + batch * init_census(c.qc).total()
+            ops += float(sw.sum()) * (int8_ops(c.qc) if store == "int8" else 0)
+            timed(tag, lambda: dec.outputs(llr), lambda: dec.plain_outputs(llr),
+                  ops, 4 * c.n * batch + c.n * batch + 13 * batch, peak,
+                  dec.blocks_per_sm(dev), out)
+    return {"times": out, "errors": err}
+
+
+def phase_fused_fer() -> None:
+    """Phase 8b: FER of the fused kernels' new configurations against the
+    JAX package's records, each within 5 combined standard errors: the
+    learned [T] schedule through fused flooding NMS-12 at wimax 576, 2.0 dB;
+    int8 E through fused flooding NMS-20 at wimax 1152, 2.0 dB."""
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+
+    learned = json.loads(LEARNED.read_text())
+    rec = learned["eval"][0]
+    ref_learned = (round(rec["learned schedule"]["fer"]
+                         * rec["learned schedule"]["frames"]),
+                   rec["learned schedule"]["frames"])
+    for tag, name, kw, ref in (
+        ("learned schedule nms-12 wimax 576", "builtin:wimax_576_0.5.alist.txt",
+         dict(iterations=12, minsum_alpha=tuple(learned["alphas"])),
+         ref_learned),
+        ("int8 E nms-20 wimax 1152", W1152,
+         dict(iterations=20, msg_store="int8"), REF_INT8),
+    ):
+        code = load_code(name)
+        ex = PointExecutor(code, SimOptions(
+            matrix=name, fidelity="exact", batch=BATCH, seed=11, speed=0.5,
+            schedule="flooding", decoder="normalized-minsum", **kw))
+        if not ex.kernel_used.startswith("cuda+fused"):
+            fail(f"{tag} took {ex.kernel_used}, not the fused kernels")
+        st = ex.run_point(SNR_DB, FER_BATCHES * BATCH)
+        gap, bar = five_se(st.fer_frames, st.blocks, ref)
+        log(f"fer check fused flooding {tag} 2.0 dB ({ex.kernel_used}): "
+            f"{st.fer_frames}/{st.blocks} = {st.fer_frames / st.blocks:.6f} vs "
+            f"TPU {ref[0]}/{ref[1]} = {ref[0] / ref[1]:.6f}: |diff| {gap:.6f}, "
+            f"5 se {bar:.6f}")
+        if gap > bar:
+            fail(f"{tag} FER outside 5 combined standard errors of the TPU's")
+    scalar = rec["alpha=0.75 (default)"]["fer"]
+    log(f"  (the scalar alpha 0.75 at this point: {scalar:.5f} on the TPU)")
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -1068,6 +1433,8 @@ def main(argv=None) -> int:
     for name, count in launches.items():
         if count < 1:
             fail(f"{name} was not launched on the main path")
+    # ---- 4b. the fused flooding path ----
+    phase_fused_flooding(code, dev)
 
     # ---- 5. the main path's own launches, held and timed ----
     # K1 as 'auto' launches it at this point (12 iterations, single pass),
@@ -1134,6 +1501,9 @@ def main(argv=None) -> int:
     log(f"plans: mc_decoder {plan_tag(mc_full.plan)} "
         f"({mc_full.blocks_per_sm(dev)} blocks/SM), llr_decoder "
         f"{plan_tag(llr_dec.plan)} ({llr_dec.blocks_per_sm(dev)} blocks/SM)")
+    # ---- 5b. the decoders' options, held and timed ----
+    sl = phase_options_timing(code, dev, wT, consts, peak)
+    errs = {name: max(errs[name], sl["errors"][name]) for name in errs}
 
     # ---- 6-9. K3 and the unfused path ----
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
@@ -1142,6 +1512,7 @@ def main(argv=None) -> int:
     qc_err, kept = phase_qc_compare(dev)
     qc_launches, qc_batches = phase_unfused(dev)
     qc_times = phase_qc_timing(kept, peak)
+    phase_fused_fer()
     phase_unfused_split(smi)
     log(f"qc_decoder launches per batch on the headline run: "
         f"{qc_launches / qc_batches:g}")
@@ -1156,24 +1527,29 @@ def main(argv=None) -> int:
         f"{b2:.5f}, {t_k2:.4f} ms); "
         + "; ".join(f"qc_decoder {tag} {1e3 * v[4] / rate:.5f} (bound "
                     f"{v[2]:.5f}, {v[0]:.4f} ms)" for tag, v in qc_times.items()))
+    for tag, v in sl["times"].items():
+        log(f"attainable ms ({smi}): {tag}: {1e3 * v[4] / rate:.5f} (bound "
+            f"{v[2]:.5f} by {v[3]}, {v[0]:.4f} ms, plain {v[1]:.3f} ms, "
+            f"{v[5]} blocks/SM)")
 
     if args.fer_batches:
         phase_fer(args.fer_batches)
 
     kernels = [
-        {"name": "mc_decoder", "route": "cuda", "source": SOURCE,
+        {"name": "mc_decoder", "route": "cuda", "source": CSRC + "mc_decoder.cu",
          "replaces": "ldpc_tpu/ops/mc_pallas.py:378",
          "launches": launches["mc_decoder"], "max_abs_err": errs["mc_decoder"],
          "ms": t_full, "plain_ms": t_pfull, "bound_ms": b_full,
          "bound_by": by_full, "library_ms": None},
-        {"name": "llr_decoder", "route": "cuda", "source": SOURCE,
+        {"name": "llr_decoder", "route": "cuda", "source": CSRC + "llr_decoder.cu",
          "replaces": "ldpc_tpu/ops/mc_pallas.py:603",
          "launches": launches["llr_decoder"], "max_abs_err": errs["llr_decoder"],
          "ms": t_k2, "plain_ms": t_p2, "bound_ms": b2, "bound_by": by2,
          "library_ms": None},
-        {"name": "qc_decoder", "route": "cuda", "source": SOURCE,
+        {"name": "qc_decoder", "route": "cuda", "source": CSRC + "qc_decoder.cu",
          "replaces": "ldpc_tpu/ops/spa_pallas.py:710",
-         "launches": qc_launches, "max_abs_err": qc_err,
+         "launches": qc_launches,
+         "max_abs_err": max(qc_err, sl["errors"]["qc_decoder"]),
          "ms": qc_times["layered spa-12 serial (16-QAM)"][0],
          "plain_ms": qc_times["layered spa-12 serial (16-QAM)"][1],
          "bound_ms": qc_times["layered spa-12 serial (16-QAM)"][2],

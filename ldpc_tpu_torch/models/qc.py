@@ -5,7 +5,7 @@ WiGig 802.11ad, WRAN 802.22, CCSDS, Tanner) is quasi-cyclic: H consists of
 Z x Z blocks that are sums of cyclically shifted identities. The
 Tanner-graph edge permutation then factorizes into per-block-edge cyclic
 rolls along the lift dimension, which the CUDA decode loop executes as
-indexed shared-memory reads (see ldpc_tpu_torch/csrc/mc_decoder.cu).
+indexed shared-memory reads (see ldpc_tpu_torch/csrc/decode_group.cuh).
 
 The detector brute-forces candidate lift sizes Z (divisors of gcd(n, m), the
 largest first) and verifies that every nonzero diagonal of every block is

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
-directory ``.gitignore`` lists); the hash covers the source, the flags and
-the library's own ``-D`` defines, so an edited source builds anew and one
-source can give several libraries (K5's schedule is baked in by defines).
+directory ``.gitignore`` lists): K1, K2 and K3 are one source each over the
+shared decode body ``csrc/decode_group.cuh``. The hash covers the source,
+the headers of ``csrc``, the flags and the library's own ``-D`` defines, so
+an edited source or header builds anew and one source can give several
+libraries (K5's schedule is baked in by defines).
 Nothing is compiled when a module is imported: the first launch builds, or
 :func:`build_all` does it up front (one ``nvcc`` per library, all started
 together). A library is named by its source, or by ``(source, defines)``.
@@ -30,7 +32,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
-SOURCES = ("mc_decoder", "roofline")
+SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -72,7 +74,9 @@ def _flags(defines) -> list[str]:
 def library_path(lib) -> Path:
     name, defines = _spec(lib)
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

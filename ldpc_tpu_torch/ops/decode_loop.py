@@ -1,9 +1,10 @@
 """Plain PyTorch version of the QC decode loop.
 
-Counterpart of ``ldpc_tpu/ops/spa_pallas.py:59-574`` (``make_check_update``
-and ``make_decode_loop``, the body shared by the fused Monte-Carlo kernels
-and the standalone QC decoder). It repeats the CUDA decode loop's arithmetic
-in the same op order (csrc/mc_decoder.cu, ``decode_group``) on ``[n, B]``
+Counterpart of ``ldpc_tpu/ops/spa_pallas.py:59-574`` (``make_check_update``,
+``resolve_alpha_schedule``, the int8 message grid and ``make_decode_loop``,
+the body shared by the fused Monte-Carlo kernels and the standalone QC
+decoder). It repeats the CUDA decode loop's arithmetic
+in the same op order (csrc/decode_group.cuh, ``decode_group``) on ``[n, B]``
 tensors, rows ``bj * Z + z``, codewords on the
 minor axis. The CPU tests hold it against the JAX package; on the card
 ``chip_smoke.py`` holds the kernels against it. Nothing on the main path
@@ -14,11 +15,14 @@ rows in the flattened order of ``layer_groups``, with overwrite updates for
 single-diagonal layers and the additive update ``L += roll(E_new - E_old)``
 for multi-diagonal ones (CCSDS); the flooding schedule (every check row from
 ``roll(L) - E``, then every posterior ``llr + sum roll(E, -s)`` in column-slot
-order); SPA and the min-sum family with a scalar alpha / beta; a syndrome
-check every ``check_every`` sweeps with the window's ``active`` set fixed; a
-per-lane pre-done mask; the normalized-LLR flip metric (``track_norm``).
-Still to be ported (ROADMAP.md): int8 extrinsic storage and per-iteration
-alpha schedules.
+order); SPA and the min-sum family; normalized min-sum with a scalar alpha
+or a per-sweep schedule, ``alpha[min(it, T-1)]`` ([T]) or per row degree
+class ([T, D], :func:`resolve_alpha_schedule`); the extrinsics E stored as
+f32 or, for the min-sum family, as int8 on a 255-level grid over [-24, 24]
+(:func:`e_quantize`, with L kept consistent with the stored value); a
+syndrome check every ``check_every`` sweeps with the window's ``active`` set
+fixed; a per-lane pre-done mask; the normalized-LLR flip metric
+(``track_norm``).
 
 Every op is per lane, so a lane's trajectory does not depend on the others.
 Only ``iters`` does: the kernel reports to each lane the trip count of its
@@ -44,6 +48,72 @@ from ldpc_tpu_torch.ops.spa import (
 )
 
 VARIANTS = ("spa", "minsum", "normalized_minsum", "offset_minsum")
+MIN_SUM = ("minsum", "normalized_minsum", "offset_minsum")
+
+# int8 extrinsic grid for msg_store='int8' (``spa_pallas.py:107-112``):
+# uniform levels q * E_INT8_SCALE, q in [-127, 127], over [-24, 24]. The f32
+# constants are rounded once from float64, as the JAX kernels' Python floats
+# are (csrc/decode_group.cuh holds the same two values).
+E_INT8_CLIP = 24.0
+E_INT8_SCALE = E_INT8_CLIP / 127.0
+E_SCALE_F32 = float(np.float32(E_INT8_SCALE))
+E_INV_F32 = float(np.float32(1.0 / E_INT8_SCALE))
+MSG_STORES = ("f32", "int8")
+
+
+def e_quantize(val: torch.Tensor) -> torch.Tensor:
+    """f32 -> the f32 value the int8 store reproduces (``E_quantize``):
+    clip to +-24, scale, round half to even, scale back."""
+    q = torch.round(torch.clamp(val, -E_INT8_CLIP, E_INT8_CLIP) * E_INV_F32)
+    return q * E_SCALE_F32
+
+
+def e_write(val: torch.Tensor) -> torch.Tensor:
+    """An :func:`e_quantize`'d value as its int8 level (``E_write``)."""
+    return torch.round(val * E_INV_F32).to(torch.int8)
+
+
+def e_read(q: torch.Tensor) -> torch.Tensor:
+    """int8 levels -> f32 values (``E_read``)."""
+    return q.to(torch.float32) * E_SCALE_F32
+
+
+def resolve_alpha_schedule(alpha, variant: str, row_degrees):
+    """Validate a per-sweep alpha schedule against the QC graph
+    (``spa_pallas.resolve_alpha_schedule``): ``(arr, class_of)``, ``arr``
+    the float64 schedule ([T] or [T, D]) or None for a scalar, and
+    ``class_of[bi]`` base row ``bi``'s column of a [T, D] schedule (the
+    distinct row degrees ascending), else None."""
+    if np.ndim(alpha) == 0:
+        return None, None
+    if variant != "normalized_minsum":
+        raise ValueError(
+            "per-iteration alpha requires variant='normalized_minsum'")
+    arr = np.asarray(alpha, np.float64)
+    if arr.size == 0:
+        raise ValueError(
+            "alpha schedule is empty: need at least one per-iteration value")
+    if arr.ndim == 1:
+        return arr, None
+    if arr.ndim != 2:
+        raise ValueError("alpha schedule must be scalar, [T] or [T, D]")
+    degrees = sorted({int(d) for d in row_degrees})
+    if arr.shape[1] != len(degrees):
+        raise ValueError(
+            f"alpha has {arr.shape[1]} degree classes but the graph has "
+            f"{len(degrees)} distinct check degrees {degrees}")
+    lookup = {d: i for i, d in enumerate(degrees)}
+    return arr, [lookup[int(d)] for d in row_degrees]
+
+
+def check_msg_store(msg_store: str, variant: str) -> None:
+    """The JAX kernels' refusals of ``msg_store`` (``spa_pallas.py:346-353``)."""
+    if msg_store not in MSG_STORES:
+        raise ValueError(f"msg_store must be 'f32' or 'int8': {msg_store!r}")
+    if msg_store == "int8" and variant == "spa":
+        raise ValueError(
+            "msg_store='int8' requires a min-sum variant: the SPA tanh rule "
+            "loses FER under message quantization (examples/quantized_messages)")
 
 
 def normalize_variant(variant: str) -> str:
@@ -78,6 +148,11 @@ class QCTables:
     def R(self) -> int:
         """Rows per layer step (1, or 2 for paired groups)."""
         return max(len(g) for g in self.groups)
+
+    @property
+    def degrees(self) -> np.ndarray:
+        """Row degree of each base row."""
+        return np.diff(self.row_off)
 
     @property
     def dmax(self) -> int:
@@ -202,23 +277,21 @@ class DecodeLoop:
     at each lane's convergence) on exit. Returns ``(done, conv, iters,
     norm)``: bool / int32 / int32 / f32 [B]; ``norm`` is zeros unless
     ``track_norm`` (then ``info_pos`` names the info positions the flip
-    metric counts). ``run`` returns the first three.
+    metric counts). ``run`` returns the first three. ``alpha`` is a scalar or
+    a schedule (:func:`resolve_alpha_schedule`); ``msg_store='int8'`` keeps
+    E as int8 levels (:func:`e_quantize`).
     """
 
     def __init__(self, tables: QCTables, max_iterations: int, variant: str,
-                 *, alpha: float = 0.75, beta: float = 0.15,
+                 *, alpha=0.75, beta: float = 0.15,
                  check_every: int = 1, lanes: int = 128,
                  device: str | torch.device = "cpu",
                  schedule: str = "layered", track_norm: bool = False,
-                 info_pos=None):
+                 info_pos=None, msg_store: str = "f32"):
         if check_every < 1 or max_iterations % check_every:
             raise ValueError(
                 f"check_every={check_every} must divide "
                 f"max_iterations={max_iterations}"
-            )
-        if np.ndim(alpha) != 0:
-            raise NotImplementedError(
-                "per-iteration alpha schedules are not ported yet (ROADMAP.md)"
             )
         if schedule not in ("layered", "flooding"):
             raise ValueError(f"Unknown schedule: {schedule!r}")
@@ -232,7 +305,15 @@ class DecodeLoop:
         self.tables = tables
         self.max_iterations = int(max_iterations)
         self.variant = normalize_variant(variant)
-        self.alpha = float(alpha)
+        check_msg_store(msg_store, self.variant)
+        self.int8 = msg_store == "int8"
+        arr, cls = resolve_alpha_schedule(alpha, self.variant, tables.degrees)
+        # each schedule value cast to f32 once, as _sched_at's
+        # jnp.float32(vec[t]) does; a [T] schedule is one degree class
+        self._sched = None if arr is None else \
+            np.asarray(arr, np.float32).reshape(arr.shape[0], -1)
+        self._cls = cls
+        self.alpha = float(alpha) if arr is None else None
         self.beta = float(beta)
         self.check_every = int(check_every)
         self.lanes = int(lanes)
@@ -270,6 +351,23 @@ class DecodeLoop:
             self._k = torch.tensor(float(max(info.size, 1)),
                                    dtype=torch.float32, device=device)
 
+    def alpha_at(self, it: int, bi: int) -> float:
+        """The normalized min-sum scale of base row ``bi`` at sweep ``it``:
+        the scalar, or ``alpha[min(it, T-1)]`` of the row's degree class."""
+        if self._sched is None:
+            return self.alpha
+        t = min(it, self._sched.shape[0] - 1)
+        return float(self._sched[t, 0 if self._cls is None else self._cls[bi]])
+
+    def _e_read(self, e: torch.Tensor) -> torch.Tensor:
+        return e_read(e) if self.int8 else e
+
+    def _e_new(self, e: torch.Tensor) -> torch.Tensor:
+        return e_quantize(e) if self.int8 else e
+
+    def _e_store(self, e: torch.Tensor) -> torch.Tensor:
+        return e_write(e) if self.int8 else e
+
     def _flood_tables(self, as_long) -> None:
         """Gather indices of the flooding sweep, grouped by degree so that
         each phase is a few tensor ops: per row degree d, the rows' L reads
@@ -291,7 +389,7 @@ class DecodeLoop:
             lidx = (t.slot_col[slots][..., None] * Z
                     + (z + t.slot_shift[slots][..., None]) % Z)  # [nr, d, Z]
             self._flood_rows.append((d, len(rows), as_long(slots.ravel()),
-                                     as_long(lidx.ravel())))
+                                     as_long(lidx.ravel()), rows[0]))
         col_off, col_slot, col_shift = t.column_slots()
         by_deg = {}
         for bj in range(qc.nb):
@@ -304,9 +402,11 @@ class DecodeLoop:
                     + (z - col_shift[ent][..., None]) % Z)  # [nc, d, Z]
             self._flood_cols.append((d, as_long(cols), as_long(eidx.ravel())))
 
-    def sweep(self, L: torch.Tensor, E: torch.Tensor,
-              active: torch.Tensor) -> None:
-        """One layered sweep in schedule order, in place on L and E."""
+    def sweep(self, L: torch.Tensor, E: torch.Tensor, active: torch.Tensor,
+              it: int = 0) -> None:
+        """Layered sweep ``it`` in schedule order, in place on L and E: each
+        row's messages ``roll(L) - E_read``, its extrinsics quantized on the
+        way out (int8), the posteriors from the quantized values."""
         qc = self.tables.qc
         Z = qc.Z
         B = L.shape[1]
@@ -316,9 +416,11 @@ class DecodeLoop:
             if d == 0:
                 continue
             old = L.index_select(0, idx)  # [d*Z, B]
-            e_old = E[lo:hi]  # [d, Z, B]
+            e_stored = E[lo:hi]  # [d, Z, B]
+            e_old = self._e_read(e_stored)
             msgs = old.view(d, Z, B) - e_old
-            e_new = check_update(msgs, self.variant, self.alpha, self.beta)
+            e_new = self._e_new(check_update(msgs, self.variant,
+                                             self.alpha_at(it, bi), self.beta))
             if dup:
                 # multi-diagonal row: extrinsic deltas accumulate per base
                 # column in slot order, then add to the posterior
@@ -334,25 +436,29 @@ class DecodeLoop:
             else:
                 l_new = (msgs + e_new).view(d * Z, B)
                 L.index_copy_(0, idx, torch.where(active, l_new, old))
-            E[lo:hi] = torch.where(active, e_new, e_old)
+            E[lo:hi] = torch.where(active, self._e_store(e_new), e_stored)
 
     def flood_sweep(self, L: torch.Tensor, E: torch.Tensor, llr: torch.Tensor,
-                    active: torch.Tensor) -> None:
-        """One flooding sweep, in place on L and E: every check row from
-        ``roll(L) - E`` (E written where active), then every posterior
-        ``llr + roll(E[slot], -s)`` summed in column-slot order (L written
-        where active, as the kernel does)."""
+                    active: torch.Tensor, it: int = 0) -> None:
+        """Flooding sweep ``it``, in place on L and E: every check row from
+        ``roll(L) - E_read`` (E written where active, quantized under int8),
+        then every posterior ``llr + roll(E_read[slot], -s)`` summed in
+        column-slot order (L written where active, as the kernel does)."""
         qc = self.tables.qc
         Z = qc.Z
         B = L.shape[1]
-        for d, nr, slots, lidx in self._flood_rows:
-            e_old = E.index_select(0, slots).view(nr, d, Z, B)
-            msgs = L.index_select(0, lidx).view(nr, d, Z, B) - e_old
+        for d, nr, slots, lidx, bi0 in self._flood_rows:
+            e_stored = E.index_select(0, slots).view(nr, d, Z, B)
+            msgs = L.index_select(0, lidx).view(nr, d, Z, B) \
+                - self._e_read(e_stored)
+            # rows of one degree share a degree class, so one alpha
             e_new = check_update(msgs.transpose(0, 1), self.variant,
-                                 self.alpha, self.beta).transpose(0, 1)
-            E.index_copy_(0, slots, torch.where(active, e_new, e_old)
+                                 self.alpha_at(it, bi0),
+                                 self.beta).transpose(0, 1)
+            e_new = self._e_store(self._e_new(e_new))
+            E.index_copy_(0, slots, torch.where(active, e_new, e_stored)
                           .reshape(nr * d, Z, B))
-        Ef = E.view(-1, B)
+        Ef = self._e_read(E).view(-1, B)
         L3 = L.view(qc.nb, Z, B)
         for d, cols, eidx in self._flood_cols:
             g = Ef.index_select(0, eidx).view(len(cols), d, Z, B)
@@ -377,7 +483,8 @@ class DecodeLoop:
         if n != qc.n:
             raise ValueError(f"L has {n} rows, the code has n={qc.n}")
         dev = L.device
-        E = torch.zeros((self.tables.e_slots, qc.Z, B), dtype=torch.float32,
+        E = torch.zeros((self.tables.e_slots, qc.Z, B),
+                        dtype=torch.int8 if self.int8 else torch.float32,
                         device=dev)
         llr = L.clone() if self.flooding else None
         done = done0.to(torch.bool).clone()
@@ -388,11 +495,11 @@ class DecodeLoop:
         it = 0
         while it < self.max_iterations and not bool(done.all()):
             active = ~done
-            for _ in range(ce):
+            for step in range(ce):
                 if self.flooding:
-                    self.flood_sweep(L, E, llr, active)
+                    self.flood_sweep(L, E, llr, active, it + step)
                 else:
-                    self.sweep(L, E, active)
+                    self.sweep(L, E, active, it + step)
             ok_now = ~self.unsatisfied(L)
             if self.track_norm:
                 # integer flip count over the info bits, divided once in f32

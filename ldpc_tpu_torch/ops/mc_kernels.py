@@ -10,10 +10,13 @@ Replaces the two Pallas kernels of the JAX package's main path:
   ``:561-601``, ``pallas_call`` ``:603``) by :class:`LLRDecoder`: the same
   decode and counts from given LLRs with a per-lane pre-done mask.
 
-Both kernels live in ``csrc/mc_decoder.cu`` and share one ``__device__``
-decode loop (``decode_group``), the counterpart of
+The kernels live in ``csrc/mc_decoder.cu`` and ``csrc/llr_decoder.cu`` and
+share one ``__device__`` decode loop (``decode_group`` in
+``csrc/decode_group.cuh``), the counterpart of
 ``spa_pallas.make_decode_loop``, with the standalone QC decoder K3
-(``qc_kernels.py``). What bounds them on the card: instruction issue on a
+(``qc_kernels.py``): the layered or the flooding schedule, a scalar or
+scheduled alpha, f32 or int8 extrinsics, with or without the flip metric
+(:class:`DecodeConfig`). What bounds them on the card: instruction issue on a
 chain of dependent layer steps per codeword (a gather along Z, SPA's tanh /
 log / division combine, a scatter, a barrier); the card's memory traffic is
 small (the codeword bits in, five counter rows out, the LLRs when emitted).
@@ -32,7 +35,9 @@ the time each point bought):
    codewords of one row.
 
 The posteriors L and extrinsics E of a block's codewords stay in shared
-memory for the whole decode (no device-memory traffic per iteration).
+memory for the whole decode; a flooding decode restarts every sweep from the
+channel LLRs, which K1 and K2 write once into an internal [B, n] row in device
+memory.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor (it raises on what the kernel does not take;
@@ -63,7 +68,9 @@ from ldpc_tpu_torch.ops.decode_loop import (
     DecodeLoop,
     QCTables,
     build_tables,
+    check_msg_store,
     normalize_variant,
+    resolve_alpha_schedule,
 )
 
 TWO_PI = 2.0 * math.pi
@@ -211,25 +218,30 @@ _F = ctypes.c_float
 _U = ctypes.c_uint32
 
 # decode-loop arguments shared by the three decode kernels (see
-# csrc/mc_decoder.cu): :func:`loop_args`
+# csrc/decode_group.cuh make_loop): :func:`loop_args`
 LOOP_ARGS = [_P,  # tables
              _I, _I, _I, _I, _I, _I, _I, _I,  # n Z nb mb e_slots ngroups R B
              _I, _I, _I, _F, _F,  # max_it check_every variant alpha beta
+             _P, _P, _I, _I,  # the alpha schedule: atab acls aT aD
+             _I, _I,  # track_norm k
+             _I, _I,  # flood int8
              _I, _I,  # dmax has_dup
              _I, _I, _I, _I]  # the FusedPlan: cpg tpg Ls smem
 
 MC_KERNEL = Kernel(
     "mc_decoder", "mc_decoder_launch",
     [_P, _P, _P,  # w, raw, consts
-     _P, _P, _P, _P, _P, _P]  # err ok conv norm iters llr_out
+     _P, _P, _P, _P, _P, _P,  # err ok conv norm iters llr_out
+     _P, _P]  # xbuf prior
     + LOOP_ARGS
     + [_I, _F, _I, _U, _U, _I,  # mode amp noise_input key0 key1 skip
        _I, _P],  # device stream
 )
 LLR_KERNEL = Kernel(
-    "mc_decoder", "llr_decoder_launch",
+    "llr_decoder", "llr_decoder_launch",
     [_P, _P, _P,  # llr, w, done0
-     _P, _P, _P, _P, _P]  # err ok conv norm iters
+     _P, _P, _P, _P, _P,  # err ok conv norm iters
+     _P, _P]  # xbuf prior
     + LOOP_ARGS
     + [_I, _P],  # device stream
 )
@@ -278,7 +290,7 @@ def gather_words(tables: QCTables) -> int:
 
 
 def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
-    """int32 table the kernels read, in ``csrc/mc_decoder.cu``'s order: row
+    """int32 table the kernels read, in ``csrc/decode_group.cuh``'s order: row
     offsets, slot columns and shifts, layer groups (padded with -1) and their
     multi-diagonal flags (none under flooding), multi-diagonal rows, the
     column tables (flooding only), the gather offsets
@@ -304,14 +316,14 @@ def kernel_table(tables: QCTables, info_pos, flood: bool = False) -> np.ndarray:
     return np.concatenate(parts + [info_mask]).astype(np.int32)
 
 
-MAX_THREADS = 768  # csrc/mc_decoder.cu: the decode kernels' launch bound
+MAX_THREADS = 768  # csrc/decode_group.cuh: the decode kernels' launch bound
 
 
 @dataclass(frozen=True)
 class FusedPlan:
     """The block of the decode kernels (K1, K2, K3). The wrappers pass it to
     the kernels' entry points, which only validate it (``bad_plan`` in
-    ``csrc/mc_decoder.cu``: a shared memory size that differs from the
+    ``csrc/decode_group.cuh``: a shared memory size that differs from the
     layout's is refused).
 
     A block is one barrier group of ``lanes`` codewords and ``threads``
@@ -321,8 +333,8 @@ class FusedPlan:
     layer group's rows (layered) or 2 check rows per step (flooding, where
     the code has them). ``l_stride`` is a codeword's L row in shared memory
     (n, padded where lanes > 1 so that the lanes of a lane-fastest warp
-    start in different banks); ``smem`` the block's dynamic shared
-    memory."""
+    start in different banks); ``int8``: E stored as int8; ``smem`` the
+    block's dynamic shared memory."""
 
     lanes: int
     rows: int
@@ -331,11 +343,17 @@ class FusedPlan:
     l_stride: int
     flood: bool
     smem: int
+    int8: bool = False
 
     @property
     def padding_threads(self) -> int:
         """Threads of the block that hold no (row, z) of a codeword."""
         return self.threads - self.lanes * self.row_threads
+
+    def store_args(self) -> list:
+        """The schedule and store as the entry points take them: flood,
+        int8."""
+        return [int(self.flood), int(self.int8)]
 
     def launch_args(self) -> list:
         """The plan as the entry points take it: cpg, tpg, Ls, smem."""
@@ -343,21 +361,23 @@ class FusedPlan:
 
 
 def fused_smem_bytes(tables: QCTables, lanes: int, l_stride: int,
-                     flood: bool = False) -> int:
-    """Dynamic shared memory of a block: L [lanes][l_stride], E
-    [lanes][e_slots * Z], the multi-diagonal deltas [lanes][R * DMAX * Z]
-    (layered only), then the schedule tables with the gather offsets. (The
-    flooding schedule's channel LLRs stay in device memory: the source's
-    note has the bytes.)"""
+                     flood: bool = False, int8: bool = False) -> int:
+    """Dynamic shared memory of a block: L [lanes][l_stride], E [lanes][e_slots
+    * Z] (f32, or int8 and then padded to 16 bytes), the multi-diagonal
+    deltas [lanes][R * DMAX * Z] (layered only), the schedule tables with the
+    gather offsets."""
     qc = tables.qc
-    per_lane = l_stride + tables.e_slots * qc.Z
+    e = lanes * tables.e_slots * qc.Z
+    head = 4 * lanes * l_stride + (e if int8 else 4 * e)
+    if int8:
+        head = -(-head // 16) * 16
     if tables.has_dup and not flood:
-        per_lane += tables.R * kernel_dmax(tables) * qc.Z
-    return 4 * (lanes * per_lane + table_len(tables, flood)
-                + gather_words(tables))
+        head += 4 * lanes * tables.R * kernel_dmax(tables) * qc.Z
+    return head + 4 * (table_len(tables, flood) + gather_words(tables))
 
 
-def fused_plan(tables: QCTables, flood: bool = False) -> FusedPlan:
+def fused_plan(tables: QCTables, flood: bool = False,
+               int8: bool = False) -> FusedPlan:
     """The decode kernels' block: one barrier group, one codeword where a
     step fills a warp (``rows x Z >= 32``: 96 threads at the bench code),
     else the codewords that share one warp. A block then holds its SM only
@@ -365,8 +385,9 @@ def fused_plan(tables: QCTables, flood: bool = False) -> FusedPlan:
     the next block at once (``PERF.md``: the block-plan ladder). A layered
     step runs its layer group's rows; a flooding step 2 check rows where the
     code has them (``mb >= 2`` and ``2 x Z`` within the launch bound).
-    Raises, with the bytes, when the block exceeds the launch bound or the
-    shared memory of a block."""
+    ``int8`` sets the E store (:class:`FusedPlan`). Raises,
+    with the bytes, when the block exceeds the launch bound or the shared
+    memory of a block."""
     qc = tables.qc
     Z = qc.Z
     if flood:
@@ -381,7 +402,8 @@ def fused_plan(tables: QCTables, flood: bool = False) -> FusedPlan:
     stride = qc.n if lanes == 1 else qc.n + (32 // lanes - qc.n) % 32
     plan = FusedPlan(lanes=lanes, rows=R, row_threads=RZ, threads=threads,
                      l_stride=stride, flood=bool(flood),
-                     smem=fused_smem_bytes(tables, lanes, stride, flood))
+                     smem=fused_smem_bytes(tables, lanes, stride, flood, int8),
+                     int8=bool(int8))
     if plan.threads > MAX_THREADS or plan.smem > _SMEM_LIMIT:
         raise ValueError(
             f"code n={qc.n}, Z={Z} does not fit one block of the "
@@ -394,102 +416,159 @@ def fused_plan(tables: QCTables, flood: bool = False) -> FusedPlan:
 
 def loop_args(tables: QCTables, plan: FusedPlan, tab: torch.Tensor, B: int,
               max_iterations: int, check_every: int, variant: str,
-              alpha: float, beta: float) -> list:
-    """The decode-loop arguments of an entry point (:data:`LOOP_ARGS`)."""
+              alpha: float, beta: float, *, sched=None,
+              track_norm: bool = False, k: int = 0) -> list:
+    """The decode-loop arguments of an entry point (:data:`LOOP_ARGS`).
+    ``sched``: an alpha schedule's device tables ``(f32 [T * D], int32
+    [mb] row classes, T, D)``, or None for the scalar ``alpha``; ``k``: the
+    info positions the flip metric divides by (``track_norm``)."""
     qc = tables.qc
     ngroups = 0 if plan.flood else len(tables.groups)
     has_dup = 0 if plan.flood else int(tables.has_dup)
+    atab, acls, T, D = sched if sched is not None else (None, None, 0, 0)
     return [tab.data_ptr(), qc.n, qc.Z, qc.nb, qc.mb, tables.e_slots,
             ngroups, plan.rows, B, max_iterations, check_every,
-            _VARIANT_CODE[variant], alpha, beta, kernel_dmax(tables), has_dup,
-            *plan.launch_args()]
+            _VARIANT_CODE[variant], alpha, beta,
+            None if atab is None else atab.data_ptr(),
+            None if acls is None else acls.data_ptr(), T, D,
+            int(track_norm), int(k), *plan.store_args(),
+            kernel_dmax(tables), has_dup, *plan.launch_args()]
 
 
-# kernel kinds of csrc/mc_decoder.cu's decoder_occupancy
+# kernel kinds: the library of each decode kernel
 K_MC, K_LLR, K_QC = 0, 1, 2
+LIBRARY = {K_MC: "mc_decoder", K_LLR: "llr_decoder", K_QC: "qc_decoder"}
 
 
 def blocks_per_sm(kind: int, tables: QCTables, plan: FusedPlan, device,
                   norm: bool = False) -> int:
     """Resident blocks per SM of K1 (``kind`` :data:`K_MC`), K2
-    (:data:`K_LLR`) or K3 (:data:`K_QC`; the plan's schedule, ``norm``: the
-    flip metric compiled in) at ``plan``'s launch shape on the card
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    (:data:`K_LLR`) or K3 (:data:`K_QC`) at ``plan``'s launch shape and
+    stores on the card (``norm``: the flip metric compiled in;
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from ldpc_tpu_torch.ops.build import load
 
-    fn = load("mc_decoder").decoder_occupancy
+    fn = load(LIBRARY[kind]).decoder_occupancy
     fn.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = _I
     blocks = _I(0)
     with torch.cuda.device(device):
-        rc = fn(kind, kernel_dmax(tables), int(plan.flood), int(norm),
-                plan.threads, plan.smem, ctypes.byref(blocks))
+        rc = fn(kernel_dmax(tables), int(plan.flood), int(norm),
+                int(plan.int8), plan.threads, plan.smem, ctypes.byref(blocks))
     if rc:
         raise RuntimeError(f"decoder_occupancy failed (cudaError {rc})")
     return blocks.value
 
 
-class _FusedBase:
-    """What both decoders share: the schedule, its device tables, the plain
-    decode loop and the error count."""
+class DecodeConfig:
+    """What the three decode kernels share: the schedule, its tables and
+    plan, the alpha schedule, the E store and the flip metric, with the JAX
+    kernels' refusals (``spa_pallas.make_decode_loop``), and each device's
+    plain decode loop and kernel tables."""
+
+    kind = K_QC
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
-                 variant: str, *, alpha: float, beta: float, schedule: str,
-                 layer_groups, check_every: int):
-        if schedule != "layered":
-            raise NotImplementedError(
-                f"schedule {schedule!r}: the port's fused kernels run the "
-                "layered schedule only; flooding is still to be ported "
-                "(ROADMAP.md)"
-            )
+                 variant: str, *, alpha, beta: float, schedule: str,
+                 layer_groups, check_every: int, track_norm: bool,
+                 msg_store: str):
+        if schedule not in ("flooding", "layered"):
+            raise ValueError(f"Unknown schedule: {schedule!r}")
+        if layer_groups is not None and schedule != "layered":
+            raise ValueError("layer_groups requires schedule='layered'")
         self.qc = qc
         self.variant = normalize_variant(variant)
+        self.schedule = schedule
+        self.flood = schedule == "flooding"
         self.tables = build_tables(qc, layer_groups)
         self.max_iterations = int(max_iterations)
-        self.alpha, self.beta = float(alpha), float(beta)
         self.check_every = int(check_every)
         if self.check_every < 1 or self.max_iterations % self.check_every:
             raise ValueError(
                 f"check_every={check_every} must divide "
                 f"max_iterations={max_iterations}"
             )
+        if track_norm and self.check_every > 1:
+            raise ValueError(
+                "check_every > 1 requires track_norm=False: the "
+                "normalized-LLR flip metric is defined per iteration")
+        check_msg_store(msg_store, self.variant)
+        arr, cls = resolve_alpha_schedule(alpha, self.variant,
+                                          self.tables.degrees)
+        self.alpha = alpha if arr is None else arr
+        self._sched = None if arr is None else (
+            np.asarray(arr, np.float32).reshape(arr.shape[0], -1),
+            np.zeros(qc.mb, np.int32) if cls is None
+            else np.asarray(cls, np.int32))
+        self.beta = float(beta)
+        self.track_norm = bool(track_norm)
+        self.msg_store = msg_store
         self.info_pos = np.asarray(info_pos, np.int64)
-        self.plan = fused_plan(self.tables)
+        self.plan = fused_plan(self.tables, self.flood, msg_store == "int8")
         self.lanes = self.plan.lanes
         self._per_device: dict = {}
 
     def blocks_per_sm(self, device) -> int:
         """Resident blocks per SM of this decoder's kernel at its launch
         shape (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-        return blocks_per_sm(K_LLR if isinstance(self, LLRDecoder) else K_MC,
-                             self.tables, self.plan, device)
+        return blocks_per_sm(self.kind, self.tables, self.plan, device,
+                             norm=self.track_norm)
 
     def _dev(self, device: torch.device):
-        """(plain decode loop, info index, kernel tables) for one device."""
+        """(plain decode loop, info index, kernel tables, alpha schedule's
+        device tables or None) for one device."""
+        device = torch.device(device)
         key = str(device)
         if key not in self._per_device:
             loop = DecodeLoop(self.tables, self.max_iterations, self.variant,
                               alpha=self.alpha, beta=self.beta,
                               check_every=self.check_every, lanes=self.lanes,
-                              device=device)
+                              device=device, schedule=self.schedule,
+                              track_norm=self.track_norm,
+                              info_pos=self.info_pos, msg_store=self.msg_store)
+            sched = None
+            if self._sched is not None:
+                vals, cls = self._sched
+                sched = (torch.as_tensor(vals.ravel(), device=device),
+                         torch.as_tensor(cls, device=device), *vals.shape)
             self._per_device[key] = (
                 loop,
                 torch.as_tensor(self.info_pos, device=device),
-                torch.as_tensor(kernel_table(self.tables, self.info_pos),
-                                device=device),
+                torch.as_tensor(kernel_table(self.tables, self.info_pos,
+                                             self.flood), device=device),
+                sched,
             )
         return self._per_device[key]
 
+    def _loop_args(self, device, B: int) -> list:
+        _, _, tab, sched = self._dev(device)
+        alpha = 1.0 if self._sched is not None else float(self.alpha)
+        return loop_args(self.tables, self.plan, tab, B,
+                         self.max_iterations, self.check_every, self.variant,
+                         alpha, self.beta, sched=sched,
+                         track_norm=self.track_norm, k=self.info_pos.size)
+
+    def _buffers(self, B: int, device):
+        """The kernel's internal [B, n] rows: the channel LLRs of a flooding
+        decode (K1 / K2; K3 reads its input), and the flip metric's previous
+        posteriors."""
+        n = self.qc.n
+        xbuf = (torch.empty((B, n), dtype=torch.float32, device=device)
+                if self.kind != K_QC and self.flood else None)
+        prior = (torch.empty((B, n), dtype=torch.float32, device=device)
+                 if self.track_norm else None)
+        return xbuf, prior
+
+
+class _FusedBase(DecodeConfig):
+    """What both fused decoders share beyond :class:`DecodeConfig`: the
+    error count and the argument checks."""
+
     def _count_errors(self, L: torch.Tensor, wT: torch.Tensor) -> torch.Tensor:
-        _, info, _ = self._dev(L.device)
+        _, info, _, _ = self._dev(L.device)
         est = L.index_select(0, info) < 0
         x = wT.index_select(0, info) != 0
         return (est != x).sum(dim=0).to(torch.int32)
-
-    def _loop_args(self, tab: torch.Tensor, B: int) -> list:
-        return loop_args(self.tables, self.plan, tab, B, self.max_iterations,
-                         self.check_every, self.variant, self.alpha,
-                         self.beta)
 
     @staticmethod
     def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -510,6 +589,10 @@ class _FusedBase:
                 torch.empty(B, dtype=torch.float32, device=device),
                 torch.empty(B, dtype=torch.int32, device=device))
 
+    @staticmethod
+    def _ptr(x):
+        return None if x is None else x.data_ptr()
+
 
 class MCDecoder(_FusedBase):
     """``mc_step(wT, consts, seeds=None, raw=None, skip=0)``.
@@ -523,24 +606,30 @@ class MCDecoder(_FusedBase):
     Returns ``(err, ok, conv, norm, iters)``: int32 / bool / int32 / f32 /
     int32 [B]; ``err`` counts info-bit mismatches in every frame (callers
     apply the failed-frames rule); ``conv`` is the check iteration of
-    convergence or -1; ``norm`` is zeros (the metric is K3's only);
-    ``iters`` is the trip count of the lane's block (the largest of its
-    codewords', its own at one codeword per block). ``emit_llr`` appends
-    the channel LLRs, f32 [n, B] in the log(p0/p1) domain.
+    convergence or -1; ``norm`` is the normalized-LLR flip metric with
+    ``track_norm``, else zeros; ``iters`` is the trip count of the lane's
+    block (the largest of its codewords', its own at one codeword per
+    block). ``emit_llr`` appends the channel LLRs, f32 [n, B] in the
+    log(p0/p1) domain. Layered or flooding, scalar or scheduled alpha, f32
+    or int8 E, as :class:`DecodeConfig` takes them.
     """
+
+    kind = K_MC
 
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
                  variant: str = "spa", *, mode: int = 1, modulation: int = 1,
-                 alpha: float = 0.75, beta: float = 0.15,
+                 alpha=0.75, beta: float = 0.15,
                  schedule: str = "layered", emit_llr: bool = False,
-                 layer_groups=None, check_every: int = 1):
+                 layer_groups=None, check_every: int = 1,
+                 track_norm: bool = False, msg_store: str = "f32"):
         if mode not in DRAWS_PER_BIT:
             raise ValueError(f"Unknown channel mode: {mode}")
         if modulation not in (1, 2):
             raise ValueError("MC kernel supports modulation 1 (BPSK) / 2 (QPSK proxy)")
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every)
+                         layer_groups=layer_groups, check_every=check_every,
+                         track_norm=track_norm, msg_store=msg_store)
         self.mode, self.modulation = mode, modulation
         self.amp = 1.0 if modulation == 1 else 0.7
         self.emit_llr = emit_llr
@@ -556,7 +645,7 @@ class MCDecoder(_FusedBase):
         """The kernel's arithmetic in PyTorch, on any device."""
         n, B = wT.shape
         dev = wT.device
-        loop, _, _ = self._dev(dev)
+        loop = self._dev(dev)[0]
         if raw is None:
             if seeds is None:
                 raise ValueError("pass raw words or Philox seeds")
@@ -565,9 +654,8 @@ class MCDecoder(_FusedBase):
                                    self.modulation, self.qc.Z)
         llr = L.clone() if self.emit_llr else None
         done0 = torch.full((B,), bool(skip), dtype=torch.bool, device=dev)
-        done, conv, iters = loop.run(L, done0)
-        out = (self._count_errors(L, wT), done, conv,
-               torch.zeros(B, dtype=torch.float32, device=dev), iters)
+        done, conv, iters, norm = loop.decode(L, done0)
+        out = (self._count_errors(L, wT), done, conv, norm, iters)
         return out + (llr,) if self.emit_llr else out
 
     def _launch(self, wT, consts, seeds, raw, skip):
@@ -583,19 +671,19 @@ class MCDecoder(_FusedBase):
             raise ValueError("pass raw words or Philox seeds")
         else:
             key = (int(seeds[0]) & _M32, int(seeds[1]) & _M32)
-        _, _, tab = self._dev(dev)
         outs = self._outputs(B, dev)
         llr = (torch.empty((n, B), dtype=torch.float32, device=dev)
                if self.emit_llr else None)
         if B == 0:  # nothing to launch
             return outs + (llr,) if self.emit_llr else outs
+        args = self._loop_args(dev, B)
+        xbuf, prior = self._buffers(B, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             MC_KERNEL(
-                wT.data_ptr(), None if raw is None else raw.data_ptr(),
-                consts.data_ptr(), *(o.data_ptr() for o in outs),
-                None if llr is None else llr.data_ptr(),
-                *self._loop_args(tab, B),
+                wT.data_ptr(), self._ptr(raw), consts.data_ptr(),
+                *(o.data_ptr() for o in outs), self._ptr(llr),
+                self._ptr(xbuf), self._ptr(prior), *args,
                 self.mode, self.amp, int(raw is not None), key[0], key[1],
                 int(bool(skip)), dev.index, stream,
             )
@@ -609,18 +697,22 @@ class LLRDecoder(_FusedBase):
     log(p0/p1) domain (as :class:`MCDecoder` emits them), ``wT`` f32 [n, B]
     transmitted bits in the same lane order, ``done0`` f32 [B] with 1.0
     pre-marking a lane done: its LLRs are not read and its outputs are
-    placeholders (ok, conv -1, no errors). Outputs as for
+    placeholders (ok, conv -1, no errors, norm 0). Outputs as for
     :class:`MCDecoder`; a block whose codewords are all pre-done only writes
     its placeholders.
     """
 
+    kind = K_LLR
+
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
-                 variant: str = "spa", *, alpha: float = 0.75,
+                 variant: str = "spa", *, alpha=0.75,
                  beta: float = 0.15, schedule: str = "layered",
-                 layer_groups=None, check_every: int = 1):
+                 layer_groups=None, check_every: int = 1,
+                 track_norm: bool = False, msg_store: str = "f32"):
         super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
                          beta=beta, schedule=schedule,
-                         layer_groups=layer_groups, check_every=check_every)
+                         layer_groups=layer_groups, check_every=check_every,
+                         track_norm=track_norm, msg_store=msg_store)
 
     def __call__(self, llrT, wT, done0):
         if llrT.device.type == "cpu":
@@ -631,14 +723,12 @@ class LLRDecoder(_FusedBase):
 
     def plain(self, llrT, wT, done0):
         """The kernel's arithmetic in PyTorch, on any device."""
-        B = llrT.shape[1]
-        loop, _, _ = self._dev(llrT.device)
+        loop = self._dev(llrT.device)[0]
         L = llrT.to(torch.float32).clone()
         pre = done0 > 0.5
-        done, conv, iters = loop.run(L, pre)
+        done, conv, iters, norm = loop.decode(L, pre)
         err = torch.where(pre, 0, self._count_errors(L, wT)).to(torch.int32)
-        return (err, done, conv,
-                torch.zeros(B, dtype=torch.float32, device=llrT.device), iters)
+        return err, done, conv, norm, iters
 
     def _launch(self, llrT, wT, done0):
         dev = llrT.device
@@ -646,15 +736,16 @@ class LLRDecoder(_FusedBase):
         self._check("llrT", llrT, torch.float32, (n, B), dev)
         self._check("wT", wT, torch.float32, (n, B), dev)
         self._check("done0", done0, torch.float32, (B,), dev)
-        _, _, tab = self._dev(dev)
         outs = self._outputs(B, dev)
         if B == 0:  # nothing to launch
             return outs
+        args = self._loop_args(dev, B)
+        xbuf, prior = self._buffers(B, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             LLR_KERNEL(
                 llrT.data_ptr(), wT.data_ptr(), done0.data_ptr(),
-                *(o.data_ptr() for o in outs), *self._loop_args(tab, B),
-                dev.index, stream,
+                *(o.data_ptr() for o in outs), self._ptr(xbuf),
+                self._ptr(prior), *args, dev.index, stream,
             )
         return outs

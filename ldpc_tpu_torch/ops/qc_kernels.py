@@ -5,11 +5,12 @@ Replaces the Pallas kernel ``ldpc_tpu/ops/spa_pallas.py:626``
 decoder of every run the fused Monte-Carlo kernels cannot take: interleavers,
 Gray QAM, shorten/puncture, ``fused='off'``, the flooding schedule and the
 normalized-LLR metric. :class:`QCDecoder` decodes given channel LLRs with the
-layered (serial or paired groups, ``check_every``) or the flooding schedule
-and returns the hard decisions, ok, the convergence iteration, the
-normalized-LLR flip metric and the trip count.
+layered (serial or paired groups, ``check_every``) or the flooding schedule,
+a scalar or scheduled alpha and f32 or int8 extrinsics, and returns the hard
+decisions, ok, the convergence iteration, the normalized-LLR flip metric and
+the trip count.
 
-The kernel (``qc_decoder_kernel`` in ``csrc/mc_decoder.cu``) runs the
+The kernel (``qc_decoder_kernel`` in ``csrc/qc_decoder.cu``) runs the
 ``decode_group`` body of the fused kernels K1 / K2, with the flooding
 schedule and the flip metric brought into it. What bounds it on the card: as
 for them, a chain of dependent steps per codeword (a layer, or a flooding
@@ -39,37 +40,27 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ldpc_tpu_torch.models.qc import QCLayout
 from ldpc_tpu_torch.ops.build import Kernel
-from ldpc_tpu_torch.ops.decode_loop import DecodeLoop, build_tables, normalize_variant
-from ldpc_tpu_torch.ops.mc_kernels import (
-    K_QC,
-    LOOP_ARGS,
-    blocks_per_sm,
-    fused_plan,
-    kernel_table,
-    loop_args,
-)
+from ldpc_tpu_torch.ops.mc_kernels import K_QC, LOOP_ARGS, DecodeConfig
 from ldpc_tpu_torch.ops.spa import DecodeResult
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
 QC_KERNEL = Kernel(
-    "mc_decoder", "qc_decoder_launch",
+    "qc_decoder", "qc_decoder_launch",
     [_P, _P,  # llr, prior
      _P, _P, _P, _P, _P]  # est ok conv norm iters
     + LOOP_ARGS
-    + [_I, _I, _I, _I,  # flood track_norm k skip
+    + [_I,  # skip
        _I, _P],  # device stream
 )
 
 
-class QCDecoder:
+class QCDecoder(DecodeConfig):
     """``decode(llr, skip=None) -> DecodeResult`` for one QC code.
 
     ``llr`` f32 [B, n] follows the channel convention (LLR > 0 <=> bit 1)
@@ -77,71 +68,24 @@ class QCDecoder:
     the parity rule is the exact one. ``skip`` nonzero pre-marks every lane
     done (the loop exits before iteration 0; outputs are placeholders).
     ``info_pos`` locates the info bits the normalized-LLR metric counts
-    (``track_norm``). ``plan`` is the kernel's block
-    (:func:`~mc_kernels.fused_plan`); the plain version runs blocks of its
-    ``lanes`` codewords, so even the per-codeword trip counts of
-    :meth:`outputs` agree.
+    (``track_norm``). ``alpha`` is a scalar or a [T] / [T, D] schedule of
+    normalized min-sum; ``msg_store='int8'`` (min-sum family) stores E as
+    int8. ``plan`` is the kernel's block (:func:`~mc_kernels.fused_plan`);
+    the plain version runs blocks of its ``lanes`` codewords, so even the
+    per-codeword trip counts of :meth:`outputs` agree.
     """
 
+    kind = K_QC
+
     def __init__(self, qc: QCLayout, info_pos, max_iterations: int,
-                 variant: str = "spa", *, alpha: float = 0.75,
+                 variant: str = "spa", *, alpha=0.75,
                  beta: float = 0.15, schedule: str = "flooding",
                  track_norm: bool = True, msg_store: str = "f32",
                  layer_groups=None, check_every: int = 1):
-        if schedule not in ("flooding", "layered"):
-            raise ValueError(f"Unknown schedule: {schedule!r}")
-        if layer_groups is not None and schedule != "layered":
-            raise ValueError("layer_groups requires schedule='layered'")
-        if msg_store != "f32":
-            raise NotImplementedError(
-                f"msg_store={msg_store!r} is not ported yet (ROADMAP.md)")
-        if np.ndim(alpha) != 0:
-            raise NotImplementedError(
-                "per-iteration alpha schedules are not ported yet (ROADMAP.md)")
-        if check_every < 1 or max_iterations % check_every:
-            raise ValueError(f"check_every={check_every} must divide "
-                             f"max_iterations={max_iterations}")
-        if track_norm and check_every > 1:
-            raise ValueError(
-                "check_every > 1 requires track_norm=False: the "
-                "normalized-LLR flip metric is defined per iteration")
-        self.qc = qc
-        self.variant = normalize_variant(variant)
-        self.schedule = schedule
-        self.flood = schedule == "flooding"
-        self.track_norm = bool(track_norm)
-        self.tables = build_tables(qc, layer_groups)
-        self.max_iterations = int(max_iterations)
-        self.alpha, self.beta = float(alpha), float(beta)
-        self.check_every = int(check_every)
-        self.info_pos = np.asarray(info_pos, np.int64)
-        self.plan = fused_plan(self.tables, self.flood)
-        self.lanes = self.plan.lanes
-        self._per_device: dict = {}
-
-    def blocks_per_sm(self, device) -> int:
-        """Resident blocks per SM of the kernel at its launch shape
-        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-        return blocks_per_sm(K_QC, self.tables, self.plan, device,
-                             norm=self.track_norm)
-
-    def _dev(self, device):
-        """(plain decode loop, kernel tables) for one device."""
-        device = torch.device(device)
-        key = str(device)
-        if key not in self._per_device:
-            loop = DecodeLoop(self.tables, self.max_iterations, self.variant,
-                              alpha=self.alpha, beta=self.beta,
-                              check_every=self.check_every,
-                              lanes=self.lanes, device=device,
-                              schedule=self.schedule,
-                              track_norm=self.track_norm,
-                              info_pos=self.info_pos)
-            tab = torch.as_tensor(
-                kernel_table(self.tables, self.info_pos, self.flood),
-                device=device)
-            self._per_device[key] = (loop, tab)
-        return self._per_device[key]
+        super().__init__(qc, info_pos, max_iterations, variant, alpha=alpha,
+                         beta=beta, schedule=schedule,
+                         layer_groups=layer_groups, check_every=check_every,
+                         track_norm=track_norm, msg_store=msg_store)
 
     # ------------------------------------------------------------- calls --
 
@@ -163,7 +107,7 @@ class QCDecoder:
     def plain_outputs(self, llr: torch.Tensor, skip=None):
         """The kernel's arithmetic in PyTorch, on any device."""
         B = llr.shape[0]
-        loop, _ = self._dev(llr.device)
+        loop = self._dev(llr.device)[0]
         L = (-llr.to(torch.float32)).T.contiguous()
         done0 = torch.full((B,), bool(_skip(skip)), dtype=torch.bool,
                            device=llr.device)
@@ -188,7 +132,6 @@ class QCDecoder:
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
         B = llr.shape[0]
-        _, tab = self._dev(dev)
         est = torch.empty((B, n), dtype=torch.uint8, device=dev)
         ok = torch.empty(B, dtype=torch.bool, device=dev)
         conv = torch.empty(B, dtype=torch.int32, device=dev)
@@ -196,19 +139,15 @@ class QCDecoder:
         iters = torch.empty(B, dtype=torch.int32, device=dev)
         if B == 0:  # nothing to launch
             return est, ok, conv, norm, iters
+        args = self._loop_args(dev, B)
         # the flip metric's previous posteriors, codeword-major
-        prior = (torch.empty((B, n), dtype=torch.float32, device=dev)
-                 if self.track_norm else None)
+        _, prior = self._buffers(B, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             QC_KERNEL(
                 llr.data_ptr(), None if prior is None else prior.data_ptr(),
                 est.data_ptr(), ok.data_ptr(), conv.data_ptr(),
-                norm.data_ptr(), iters.data_ptr(),
-                *loop_args(self.tables, self.plan, tab, B,
-                           self.max_iterations, self.check_every,
-                           self.variant, self.alpha, self.beta),
-                int(self.flood), int(self.track_norm), int(self.info_pos.size),
+                norm.data_ptr(), iters.data_ptr(), *args,
                 int(_skip(skip)), dev.index, stream,
             )
         return est, ok, conv, norm, iters

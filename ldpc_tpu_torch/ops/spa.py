@@ -2,7 +2,7 @@
 
 Counterpart of ``ldpc_tpu/ops/spa.py:48-60, 89-110``. The decode loop's
 plain version (ldpc_tpu_torch.ops.decode_loop) and the CUDA kernel
-(csrc/mc_decoder.cu) both evaluate the leave-one-out products and minima in
+(csrc/decode_group.cuh) both evaluate the leave-one-out products and minima in
 the order :func:`exclusive_combine` defines, the precondition for min-sum
 results that are equal bit for bit.
 """

@@ -90,10 +90,13 @@ class SimOptions:
     check_rule: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     noise_model: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     batch: int = 0  # device batch of codewords; 0 -> auto
-    kernel: str = "auto"  # kept for the flag surface; the port has one decode path
+    # 'auto' / 'pallas': the port's QC kernels (K1-K3); 'xla': the XLA
+    # decoder on EdgeLayout, still to be ported (ROADMAP.md)
+    kernel: str = "auto"
     # fully-fused Monte-Carlo step: channel noise, LLRs, decode and counters
-    # in one kernel (ldpc_tpu_torch.ops.mc_kernels). The port has only this
-    # path so far: 'off' is refused until the unfused path is ported.
+    # in one kernel (ldpc_tpu_torch.ops.mc_kernels) where the configuration
+    # allows it ('auto'), always ('on', refused where it cannot), or never
+    # ('off': the unfused path, the standalone QC decoder K3)
     fused: str = "auto"
     # two-phase fused dispatch: phase 1 decodes every frame for a short
     # budget and emits its LLRs; the unconverged frames are compacted to the
@@ -115,17 +118,17 @@ class SimOptions:
     # checks, so counters differ from N=1 (FER agreement is statistical).
     # Requires iterations % N == 0 and --normalized-llr off.
     check_every: int = 1
-    # extrinsic storage: 'int8' quantizes E to a 256-level grid (min-sum
-    # only); not ported yet, the port refuses it (ROADMAP.md)
+    # extrinsic storage: 'int8' quantizes E to a 256-level grid on [-24, 24]
+    # (min-sum variants only; the QC kernels of either path)
     msg_store: str = "f32"  # 'f32' | 'int8'
     # a layout knob of the TPU kernels with no effect on per-codeword
     # results; the port accepts and ignores it
     sublane_groups: str | int = "auto"
     seed: int = 0
     exact_ber: bool = False  # also count undetected-error bits (not just failed frames)
-    # scalar, or a per-iteration schedule (tuple); the port takes a scalar
-    # only so far (ROADMAP.md)
-    minsum_alpha: float | tuple[float, ...] = 0.75
+    # scalar, or a per-iteration schedule: [T] values, alpha[min(it, T-1)]
+    # at sweep it, or [T, D] per distinct row degree (normalized min-sum)
+    minsum_alpha: float | tuple = 0.75
     minsum_beta: float = 0.15
     quiet: bool = False
 

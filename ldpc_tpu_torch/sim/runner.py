@@ -5,8 +5,9 @@ and ``run_simulation`` (``:1095-1402``). Each batch of codewords takes one of
 two pipelines.
 
 The fused path (``:521-872``), for a QC code, the exact rule on the original
-graph, an SPA / min-sum decoder, no interleaver, BPSK or the QPSK proxy, no
-shorten/puncture, the layered schedule and no normalized-LLR metric:
+graph, an SPA / min-sum decoder, no interleaver, BPSK or the QPSK proxy and
+no shorten/puncture (either schedule, with or without the normalized-LLR
+metric, a scheduled alpha or int8 extrinsics):
 
 1. random info bits (a ``torch.Generator`` seeded from (seed, point, batch));
 2. the systematic encode, one matrix product (ops.encode);
@@ -19,9 +20,8 @@ shorten/puncture, the layered schedule and no normalized-LLR metric:
 5. the failed-frames BER rule, ``reduce_block_stats`` and ``pack_counters``.
 
 The unfused path (``:891-946``), for everything else the QC decoder takes:
-any interleaver, Gray QAM, shorten/puncture, ``fused='off'``, the flooding
-schedule and ``--normalized-llr``. The batch's key splits into three
-generators (info bits, interleaver, channel):
+any interleaver, Gray QAM, shorten/puncture and ``fused='off'``. The batch's
+key splits into three generators (info bits, interleaver, channel):
 
 1. random info bits, the last S zeroed under shorten;
 2. the systematic encode into [B, n];
@@ -34,9 +34,10 @@ generators (info bits, interleaver, channel):
    and ``pack_counters``.
 
 ``fused='auto'`` takes the fused path whenever it is eligible, on either
-device. On a TPU the JAX package's ``auto`` also fuses the flooding schedule
-and the normalized-LLR metric; the port's fused kernels run neither yet, so
-here those configurations take the unfused path (ROADMAP.md).
+device, as the JAX package's does on a TPU. The two-phase split is resolved
+for every configuration first, with the JAX package's refusals
+(``:541-559``): an explicit split with ``--normalized-llr`` is refused, and
+``auto`` drops the split then.
 
 A Python loop over batches takes the place of ``lax.scan``. Counters
 accumulate on the device and the host fetches them once per point (and
@@ -46,9 +47,8 @@ run in pieces (``start_batch``) gives the same counters as one run.
 
 Still to be ported (ROADMAP.md): the XLA decoder on ``EdgeLayout`` (``--kernel
 xla``, the legacy rule and the ``std`` graph of ``--fidelity reference``,
-non-QC codes), bit-flipping, int8 extrinsics, alpha schedules, the
-Richardson-Urbanke encoder, ``--profile``, meshes, the parallel sweep,
-adaptive mode and the CLI.
+non-QC codes), bit-flipping, the Richardson-Urbanke encoder, ``--profile``,
+meshes, the parallel sweep, adaptive mode and the CLI.
 """
 
 from __future__ import annotations
@@ -203,6 +203,24 @@ def derive_key(key: int, index: int) -> int:
     return _mix(_mix(int(key) & _M64) ^ (int(index) & _M64))
 
 
+def check_decoder_options(opts: SimOptions) -> None:
+    """The JAX runner's refusals of the decoder's options
+    (``runner.py:248-261``), for either path."""
+    variant = opts.decoder_variant
+    if np.ndim(opts.minsum_alpha) > 0 and variant != "normalized_minsum":
+        raise ValueError(
+            "a per-iteration --minsum-alpha schedule requires "
+            "--decoder normalized-minsum"
+        )
+    if opts.msg_store == "int8" and variant not in (
+            "minsum", "normalized_minsum", "offset_minsum"):
+        raise ValueError(
+            "--msg-store int8 requires a min-sum decoder variant (the SPA "
+            "tanh rule loses FER under message quantization, "
+            "examples/quantized_messages)"
+        )
+
+
 def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
                     max_iterations: int, device: torch.device):
     """The decoder of the unfused path and its ``kernel_used`` name
@@ -215,10 +233,6 @@ def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
     schedule = opts.schedule or "flooding"
     if opts.kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"Unknown kernel: {opts.kernel!r}")
-    if opts.kernel == "xla":
-        raise NotImplementedError(
-            "--kernel xla: the XLA decoder on EdgeLayout is not ported yet "
-            "(ROADMAP.md)")
     missing = [
         what for what, bad in (
             ("a quasi-cyclic code", code.qc is None),
@@ -231,6 +245,17 @@ def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
              variant not in VARIANTS),
         ) if bad
     ]
+    if opts.msg_store == "int8" and (opts.kernel == "xla" or missing):
+        raise ValueError(
+            "--msg-store int8 is a Pallas-kernel storage knob: it requires "
+            "a configuration the QC kernel accepts (QC code, "
+            "check_rule='exact', decode_graph='orig', min-sum variant, "
+            "kernel 'auto' on TPU or 'pallas')"
+        )
+    if opts.kernel == "xla":
+        raise NotImplementedError(
+            "--kernel xla: the XLA decoder on EdgeLayout is not ported yet "
+            "(ROADMAP.md)")
     if missing:
         raise NotImplementedError(
             "the port decodes with the QC decoder only so far; the XLA "
@@ -307,9 +332,7 @@ class PointExecutor:
                 "incomparable"
             )
         self.batch = opts.auto_batch(code.n)
-        if opts.msg_store != "f32":
-            raise NotImplementedError(
-                "--msg-store int8 is not ported yet (ROADMAP.md)")
+        check_decoder_options(opts)
         if opts.encoding_method not in ("standard", "STANDARD"):
             raise NotImplementedError(
                 "the Richardson-Urbanke encoder is not ported yet (ROADMAP.md)")
@@ -352,17 +375,28 @@ class PointExecutor:
                 ("modulation 1 or 2", self.modulation not in (1, 2)),
                 ("channel mode 1-3", opts.mode not in (1, 2, 3)),
                 ("no shorten/puncture", bool(S or P)),
-                ("schedule='layered' (the port's fused kernels do not run "
-                 "flooding yet)", schedule != "layered"),
-                ("no --normalized-llr (not in the port's fused kernels yet)",
-                 opts.normalized_llr),
             ) if bad
         ]
+        # the split, resolved for every configuration (runner.py:541-559)
+        phase1 = resolve_two_phase(opts.two_phase, self.max_iterations,
+                                   opts.check_every)
+        if phase1 and opts.normalized_llr:
+            # the norm-LLR sum is a float accumulator the JAX package
+            # refuses to split; 'auto' runs a single pass
+            if opts.two_phase != "auto":
+                raise ValueError(
+                    f"--two-phase {opts.two_phase} cannot be combined with "
+                    "--normalized-llr: the norm-LLR sum is a float "
+                    "accumulator that is not bit-stable across dispatch "
+                    "modes (measured on TPU, parity_runs/tpu_two_phase."
+                    "json); use --two-phase off"
+                )
+            phase1 = 0
         if opts.fused == "on" and fused_missing:
             raise ValueError(
                 "fused='on' requires " + ", ".join(fused_missing))
         self.fused = not fused_missing
-        self.phase1 = 0
+        self.phase1 = phase1 if self.fused else 0
         self._auto = False
         self.last_probe: dict = {}
         self._two_phase_choice: dict[float, bool] = {}
@@ -378,11 +412,11 @@ class PointExecutor:
         """Fused pipeline: encode, then the fused Monte-Carlo kernel."""
         self._encode_T = make_encoder_T(spec, self.graph, self.device)
         layer_groups = resolve_layer_groups(code.qc, opts, schedule)
-        self.phase1 = resolve_two_phase(opts.two_phase, self.max_iterations,
-                                        opts.check_every)
         loop_kw = dict(alpha=opts.minsum_alpha, beta=opts.minsum_beta,
                        schedule=schedule, layer_groups=layer_groups,
-                       check_every=opts.check_every)
+                       check_every=opts.check_every,
+                       track_norm=opts.normalized_llr,
+                       msg_store=opts.msg_store)
         mc_kw = dict(mode=opts.mode, modulation=self.modulation, **loop_kw)
         self._mc_full = MCDecoder(code.qc, info_pos, self.max_iterations,
                                   variant, **mc_kw)
@@ -393,7 +427,7 @@ class PointExecutor:
             self._llr_dec = LLRDecoder(code.qc, info_pos, self.max_iterations,
                                        variant, **loop_kw)
         self._kernel_base = ("cuda" if self.device.type == "cuda" else "cpu") \
-            + "+fused+layered" \
+            + "+fused" + ("+layered" if schedule == "layered" else "") \
             + ("+paired" if layer_groups is not None else "") \
             + (f"+ce{opts.check_every}" if opts.check_every > 1 else "")
         self._auto = bool(self.phase1) and opts.two_phase == "auto"

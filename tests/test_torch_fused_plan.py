@@ -165,15 +165,18 @@ def test_fused_plan_limits(monkeypatch):
 
 
 def _c_params(symbol: str) -> list[str]:
-    """The parameter list of an ``extern "C"`` entry point of
-    ``csrc/mc_decoder.cu``."""
+    """The parameter list of an ``extern "C"`` entry point of the decode
+    kernels' sources (``csrc/{mc,llr,qc}_decoder.cu``)."""
     import os
     import re
 
-    src = open(os.path.join(os.path.dirname(mk.__file__), "..", "csrc",
-                            "mc_decoder.cu"), encoding="utf-8").read()
-    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
-    return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    csrc = os.path.join(os.path.dirname(mk.__file__), "..", "csrc")
+    for name in ("mc_decoder", "llr_decoder", "qc_decoder"):
+        src = open(os.path.join(csrc, name + ".cu"), encoding="utf-8").read()
+        m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+        if m:
+            return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    raise AssertionError(f"no entry point {symbol}")
 
 
 @pytest.mark.parametrize("kernel", [mk.MC_KERNEL, mk.LLR_KERNEL, QC_KERNEL],
@@ -194,14 +197,16 @@ def test_entry_points_take_the_plan(kernel):
     dec = mk.LLRDecoder(code.qc, info, 12, "spa",
                         layer_groups=paired_layer_groups(code.qc),
                         check_every=2)
-    args = dec._loop_args(torch.zeros(1, dtype=torch.int32), 4096)
+    args = dec._loop_args(torch.device("cpu"), 4096)
     assert len(args) == len(mk.LOOP_ARGS)
     assert args[-4:] == dec.plan.launch_args() == [1, 96, 1152, dec.plan.smem]
     flood = QCDecoder(code.qc, info, 16, "spa")
     qargs = mk.loop_args(flood.tables, flood.plan, torch.zeros(1), 4096, 16,
                          1, "spa", 0.75, 0.15)
     # flooding: no layer groups, 2 rows per step, no multi-diagonal deltas
-    assert qargs[6:8] == [0, 2] and qargs[15] == 0
+    loop = params[at:at + len(mk.LOOP_ARGS)]
+    assert qargs[6:8] == [0, 2] and qargs[loop.index("has_dup")] == 0
+    assert qargs[loop.index("flood")] == 1 and qargs[loop.index("atab")] is None
     assert qargs[-4:] == [1, 96, 1152, flood.plan.smem]
 
 

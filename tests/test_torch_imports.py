@@ -41,8 +41,9 @@ def test_port_imports_neither_jax_nor_reference():
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
             name.split(".")[-1] + ".py"))
-    assert os.path.isfile(os.path.join(REPO, "ldpc_tpu_torch", "csrc",
-                                       "roofline.cu"))
+    for src in ("roofline.cu", "mc_decoder.cu", "llr_decoder.cu",
+                "qc_decoder.cu", "decode_group.cuh"):
+        assert os.path.isfile(os.path.join(REPO, "ldpc_tpu_torch", "csrc", src))
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

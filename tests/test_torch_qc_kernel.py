@@ -105,8 +105,12 @@ def test_block_plans_and_options():
         QCDecoder(code.qc, info, 12, "spa", schedule="layered", check_every=2)
     with pytest.raises(ValueError, match="layer_groups"):
         QCDecoder(code.qc, info, 12, "spa", layer_groups=[[0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QCDecoder(code.qc, info, 12, "minsum", msg_store="int8")
+    # int8 extrinsics are the min-sum family's (the JAX kernels' refusals)
+    with pytest.raises(ValueError, match="min-sum variant"):
+        QCDecoder(code.qc, info, 12, "spa", msg_store="int8")
+    with pytest.raises(ValueError, match="'f32' or 'int8'"):
+        QCDecoder(code.qc, info, 12, "minsum", msg_store="int4")
+    assert QCDecoder(code.qc, info, 12, "minsum", msg_store="int8").plan.int8
     dec = QCDecoder(code.qc, info, 4, "spa", track_norm=False)
     x = torch.zeros((code.n, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):

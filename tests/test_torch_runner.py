@@ -107,11 +107,10 @@ def test_two_phase_settings_and_trip_model():
 
 def test_unported_options_are_refused():
     """What the port does not run yet raises, naming ROADMAP.md: the legacy
-    rule and std graph of --fidelity reference, int8 extrinsics and the XLA
-    decoder. Flooding now runs the unfused QC path."""
+    rule and std graph of --fidelity reference and the XLA decoder.
+    Flooding and int8 extrinsics now run the fused kernels."""
     code = load_code(NAME)
     for kw, what in ((dict(fidelity="reference"), "legacy rule"),
-                     (dict(msg_store="int8"), "int8"),
                      (dict(kernel="xla"), "xla")):
         opts = dict(matrix=code.name, iterations=12, fidelity="exact",
                     batch=B, schedule="layered")
@@ -122,4 +121,11 @@ def test_unported_options_are_refused():
     ex = PointExecutor(code, SimOptions(matrix=code.name, iterations=12,
                                         fidelity="exact", batch=B,
                                         schedule="flooding"), device="cpu")
-    assert not ex.fused and ex.kernel_used == "cpu"
+    assert ex.fused and ex.kernel_used == "cpu+fused+2phase(auto)"
+    ex = PointExecutor(code, SimOptions(matrix=code.name, iterations=12,
+                                        fidelity="exact", batch=B,
+                                        schedule="layered", decoder="minsum",
+                                        msg_store="int8", two_phase="off"),
+                       device="cpu")
+    assert ex.fused and ex.kernel_used == "cpu+fused+layered"
+    assert ex._mc_full.plan.int8

@@ -102,12 +102,15 @@ def test_slice_matches_the_reference_chain(normalized_llr):
 
 
 @pytest.mark.parametrize("kw,fused,kind", [
-    (dict(schedule="flooding"), False, "cpu"),
+    # flooding and the normalized-LLR metric take the fused path, as the
+    # JAX runner's eligibility (runner.py:525-540) has no clause for them
+    (dict(schedule="flooding"), True, "cpu+fused"),
     (dict(schedule="layered", two_phase="off"), True, "cpu+fused+layered"),
     (dict(schedule="layered", interleaver="random"), False, "cpu+layered"),
     (dict(schedule="layered", modulation=16, mode=2), False, "cpu+layered"),
     (dict(schedule="layered", shorten=8), False, "cpu+layered"),
-    (dict(schedule="layered", normalized_llr=True), False, "cpu+layered"),
+    (dict(schedule="layered", normalized_llr=True), True,
+     "cpu+fused+layered"),
     (dict(schedule="layered", layer_order="paired", check_every=2,
           fused="off"), False, "cpu+layered+paired+ce2"),
     (dict(schedule="flooding", kernel="pallas", interleaver="regular"), False,
@@ -125,11 +128,22 @@ def test_decoder_choice(kw, fused, kind):
     (dict(check_rule="exact", fidelity="reference"), NotImplementedError,
      "std graph"),
     (dict(decoder="bitflipping"), NotImplementedError, "bit-flipping"),
-    (dict(msg_store="int8", decoder="minsum"), NotImplementedError, "int8"),
-    (dict(minsum_alpha=(0.7, 0.8), decoder="normalized-minsum"),
-     NotImplementedError, "alpha"),
-    (dict(fused="on"), ValueError, "flooding"),
+    # the JAX runner's refusals (runner.py:248-288)
+    (dict(msg_store="int8", decoder="sumproduct"), ValueError,
+     "int8 requires a min-sum"),
+    (dict(msg_store="int8", decoder="minsum", kernel="xla"), ValueError,
+     "storage knob"),
+    (dict(minsum_alpha=(0.7, 0.8), decoder="minsum"), ValueError,
+     "requires --decoder normalized-minsum"),
+    (dict(fused="on"), ValueError, "interleaver"),
     (dict(modulation=16, fidelity="reference"), ValueError, "exact"),
+    # the --two-phase checks run for the unfused path too (runner.py:541-559)
+    (dict(two_phase="20", iterations=12), ValueError, "phase-1 iterations"),
+    (dict(two_phase="bogus"), ValueError, "'auto', 'off' or an integer"),
+    (dict(two_phase="5", check_every=2, iterations=12), ValueError,
+     "multiple of --check-every"),
+    (dict(two_phase="6", normalized_llr=True, schedule="layered",
+          iterations=12), ValueError, "--normalized-llr"),
 ])
 def test_unported_or_invalid_configurations_raise(kw, exc, what):
     opts = dict(schedule="flooding", iterations=4, interleaver="random")
