@@ -128,12 +128,34 @@ Phases:
    equal to the readback, achieved below its ceiling, FER within 5 sigma);
    every ladder entry against its plain version (rtol 1e-6); K4 (fma, depth
    4096) and K5 (8 streams, 64 passes) timed beside their plain versions
-   and bounds (hot-loop SASS instructions at the issue peak). K1-K3's
-   "attainable ms" prices their census at the measured K5 rate.
+   and bounds: each hot loop's SASS sorted by pipe (a table per library),
+   priced by ``ops.rate_kernels.pipe_bound`` (the larger of the issue term
+   and each pipe's term at compute capability 9.0's rates), with the pipe
+   that sets the bound and the census bound beside it. K1-K3's "attainable
+   ms" prices their census at the measured K5 rate.
 11. Only with ``--fer-batches N``: the FER at the headline point, single
    pass, paired and serial, with the in-kernel Philox noise and with words
    drawn by ``torch.randint``, N batches of 4096 frames each.
-12. One ``kernels`` JSON line, then the device line as the last line.
+12. The CLI's default path and the plain PyTorch decoders (no kernel of
+   theirs; K1-K3 must not launch where they run):
+   12a. ``python -m ldpc_tpu_torch.cli`` in this process at ``--fidelity
+   reference`` (std graph, legacy rule and noise), wimax 576, SPA-5, 3.5 dB,
+   102,400 frames: FER within 5 combined standard errors of the TPU record
+   (``parity_runs/ours_deep.json``: 962 / 400,000), info bits/s and peak
+   memory. 12b. The adaptive sweep of ``examples/wimax576_adaptive`` (0-5 dB,
+   20,000 frames a point): the adaptation log equal to the record's, each
+   FER within 5 combined standard errors. 12c. One point each through
+   ``run_simulation``: the Richardson-Urbanke encoder (FER within 5 sigma of
+   12a's), bit-flipping, and ``--kernel xla --schedule layered`` paired
+   normalized min-sum against the same point through K3 (equal counters).
+   12d. Each plain decoder on the card against itself on the CPU, same LLRs,
+   512 frames: min-sum and bit-flipping equal bit for bit, SPA equal on >=
+   99% of frames. 12e. The plain decoders timed per batch at the CLI's
+   auto batch (wimax 576 and 1152; std, orig, layered) with peak memory.
+   12f. One ``torch.profiler`` window of two plain batches at wimax 576
+   (reference fidelity, and ``--kernel xla`` flooding): device busy against
+   the host clock, and the kernels by device time.
+13. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -917,10 +939,14 @@ def phase_roofline(dev, smi: str, peak: float) -> dict:
         OPS,
         OPS_PER_BODY,
         RATE_KERNEL,
+        PIPES,
+        UNROLL,
         MixChain,
         RateChain,
         instructions_per_body,
-        library_loop_instructions,
+        library_hot_loops,
+        pipe_bound,
+        pipe_counts,
     )
     from ldpc_tpu_torch.scripts import attainable_ceiling, roofline
 
@@ -932,7 +958,8 @@ def phase_roofline(dev, smi: str, peak: float) -> dict:
         return torch.from_numpy(gen.random((32, n // 32)).astype(np.float32)).to(dev)
 
     x = tile((blocks, threads))
-    per_body = instructions_per_body(library_loop_instructions("roofline"))
+    k4_loops = library_hot_loops("roofline")
+    per_body = instructions_per_body(k4_loops)
     log("rate_chain hot-loop SASS instructions per body: "
         + ", ".join(f"{op} {per_body[op]:g}" for op in OPS))
     log(f"compare rate_chain (depth {COMPARE_DEPTH}, {blocks} blocks of "
@@ -1033,26 +1060,55 @@ def phase_roofline(dev, smi: str, peak: float) -> dict:
     hold_close(f"rate_chain fma depth {K4_TIME_DEPTH}", chain(x), chain.plain(x), True)
     k4_ms = time_ms(lambda: chain(x), reps=20)
     k4_plain = time_ms(lambda: chain.plain(x), reps=2, warm=1)
-    # the bounds count the census ops a body retires (OPS_PER_BODY: fma is
-    # FMUL + FADD), not the static SASS of the hot loop, which holds the
-    # loop's counter and branch and paths that never run (cosf's slow path)
-    k4_bound, k4_by = bound_ms(elems * K4_TIME_DEPTH * OPS_PER_BODY["fma"],
-                               8 * elems, peak)
     mix = MixChain(sched, K5_TIME_STREAMS, K5_TIME_PASSES, threads)
     hold_close(f"mix_rate streams {K5_TIME_STREAMS} {K5_TIME_PASSES} passes",
                mix(x), mix.plain(x), False)
-    per_pass = library_loop_instructions(("roofline", mix.defines))["mix_kernel"] / 2
     k5_ms = time_ms(lambda: mix(x), reps=20)
     k5_plain = time_ms(lambda: mix.plain(x), reps=2, warm=1)
+    # the bounds price the SASS of each hot loop by the pipes it loads
+    # (ops.rate_kernels.pipe_bound: the issue term, every instruction at 128
+    # a clock per SM, against each pipe's term at its compute capability
+    # 9.0 rate). Both loops are unrolled, so the static count is the count
+    # that runs, but for cosf's slow path, which the bench schedule lacks.
+    # The census bound (OPS_PER_BODY, one instruction per retired census
+    # op) stays beside it.
+    k5_loop = library_hot_loops(("roofline", mix.defines))["mix_kernel"]
+    for op in OPS:
+        c = pipe_counts(k4_loops[f"rate_chain_{op}"])
+        log(f"pipes rate_chain_{op} per body: "
+            + ", ".join(f"{p} {c[p] / UNROLL:g}" for p in PIPES))
+    k4_pipes = {p: v / UNROLL for p, v in
+                pipe_counts(k4_loops["rate_chain_fma"]).items()}
+    k5_pipes = {p: v / 2 for p, v in pipe_counts(k5_loop).items()}
+    log(f"pipes mix_kernel per pass ({len(sched)} schedule ops, "
+        f"{K5_TIME_STREAMS} streams): "
+        + ", ".join(f"{p} {k5_pipes[p]:g}" for p in PIPES))
+
+    def priced(pipes, units, census_ops):
+        t_pipe, pipe, terms = pipe_bound(pipes, units, peak)
+        b, by = bound_ms(t_pipe * peak, 8 * elems, peak)
+        census, _ = bound_ms(census_ops, 8 * elems, peak)
+        return b, by, pipe, terms, census
+
+    k4_bound, k4_by, k4_pipe, k4_terms, k4_census = priced(
+        k4_pipes, elems * K4_TIME_DEPTH,
+        elems * K4_TIME_DEPTH * OPS_PER_BODY["fma"])
     retired = sum(OPS_PER_BODY[c] for c in sched)
-    k5_bound, k5_by = bound_ms(elems * K5_TIME_PASSES * retired, 8 * elems, peak)
+    k5_bound, k5_by, k5_pipe, k5_terms, k5_census = priced(
+        k5_pipes, elems * K5_TIME_PASSES, elems * K5_TIME_PASSES * retired)
+    for tag, terms in (("rate_chain fma", k4_terms), ("mix_kernel", k5_terms)):
+        log(f"pipe terms {tag} (ms): "
+            + ", ".join(f"{p} {1e3 * t:.5f}" for p, t in terms.items()))
     log(f"timing ({smi}): rate_chain fma depth {K4_TIME_DEPTH} on {elems} "
         f"elements {k4_ms:.5f} ms (plain {k4_plain:.3f} ms, bound "
-        f"{k4_bound:.5f} ms by {k4_by}); mix_rate {K5_TIME_STREAMS} streams "
-        f"{K5_TIME_PASSES} passes {k5_ms:.5f} ms (plain {k5_plain:.3f} ms, "
-        f"bound {k5_bound:.5f} ms by {k5_by} at {retired} retired census ops "
-        f"per pass of {len(sched)} schedule ops; {per_pass:g} static SASS "
-        f"instructions per pass)")
+        f"{k4_bound:.5f} ms by {k4_by}, set by {k4_pipe}: "
+        f"{100 * k4_bound / k4_ms:.1f}% of it; census bound {k4_census:.5f} "
+        f"ms); mix_rate {K5_TIME_STREAMS} streams {K5_TIME_PASSES} passes "
+        f"{k5_ms:.5f} ms (plain {k5_plain:.3f} ms, bound {k5_bound:.5f} ms by "
+        f"{k5_by}, set by {k5_pipe}: {100 * k5_bound / k5_ms:.1f}% of it; "
+        f"census bound {k5_census:.5f} ms at {retired} retired census ops "
+        f"per pass of {len(sched)} schedule ops; "
+        f"{sum(k5_pipes.values()):g} SASS instructions per pass)")
     return {
         "kernels": [
             {"name": "rate_chain", "route": "cuda", "source": ROOFLINE_SOURCE,
@@ -1069,6 +1125,305 @@ def phase_roofline(dev, smi: str, peak: float) -> dict:
         "attainable_census_ops_per_s": att["attainable_census_ops_per_s"],
     }
 
+
+
+# ------------------------------------- the reference-fidelity path (plain) ----
+
+W576 = "builtin:wimax_576_0.5.alist.txt"
+REF_DEEP = (962, 400000)  # parity_runs/ours_deep.json: FER 0.002405 at 3.5 dB
+CLI_BLOCKS = 102400
+ADAPTIVE_RECORD = "examples/wimax576_adaptive/results.json"
+ADAPTIVE_ARGS = ["--matrix", W576, "--adaptive", "--blocks", "20000",
+                 "--iterations", "5", "--ber", "--fer", "--normalized-llr",
+                 "--initial-snr", "0", "--end-snr", "5", "--step-snr", "1",
+                 "--fidelity", "reference"]
+PLAIN_BATCH = 512  # frames of the plain decoders held against the CPU
+
+
+def qc_launches() -> dict:
+    """The launch counts of the decode kernels K1-K3."""
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+
+    return {"mc_decoder": MC_KERNEL.launches,
+            "llr_decoder": LLR_KERNEL.launches,
+            "qc_decoder": QC_KERNEL.launches}
+
+
+def zero_qc_launches() -> None:
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+
+    for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL):
+        k.launches = 0
+
+
+def run_cli(argv: list[str]) -> tuple[dict, float]:
+    """``python -m ldpc_tpu_torch.cli`` in this process, its JSON written to
+    a temporary directory and read back; returns it and the seconds the
+    call took."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ldpc_tpu_torch.cli import main as cli_main
+
+    out = Path(tempfile.mkdtemp(prefix="cli-"))
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(argv + ["--output-json", str(out / "r.json"), "--quiet"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if rc:
+            fail(f"the CLI exited {rc} on {argv}")
+        data = json.loads((out / "r.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return data, seconds
+
+
+def graph_llrs(code, graph: str, B: int, snr_db: float, seed: int, dev,
+               noise_model: str = "legacy", speed: float = 1.0):
+    """Channel LLRs (LLR > 0 <=> bit 1) of ``B`` random codewords in the
+    ``graph`` domain, BPSK AWGN (``speed`` 1.0 is the CLI's default)."""
+    import torch
+
+    from ldpc_tpu_torch.ops.channel import ChannelParams, make_channel
+    from ldpc_tpu_torch.ops.encode import make_encoder, random_info_bits
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = random_info_bits(gen, B, code.k)
+    w = make_encoder(code.standard_encode_spec, graph, dev)(u)
+    params = ChannelParams(snr_db=snr_db, noise_model=noise_model, speed=speed)
+    return make_channel(params, n=code.n, device=dev)(gen, w).contiguous()
+
+
+def hold_plain(tag: str, dec, llr, exact: bool) -> None:
+    """A plain decoder on the card against itself on the CPU, same LLRs:
+    every output equal (``exact``: the min-sum family and bit-flipping), or
+    est / ok / conv equal on at least 99% of frames (SPA: ``tanh`` and
+    ``log`` differ by ulps between the two libraries)."""
+    import copy
+
+    import torch
+
+    card = dec(llr)
+    sync()
+    cpu = copy.deepcopy(dec).to("cpu")(llr.cpu())
+    same = (card.est.cpu() == cpu.est).all(dim=1) & (card.ok.cpu() == cpu.ok) \
+        & (card.conv_iter.cpu() == cpu.conv_iter)
+    frac = float(same.float().mean())
+    norm_gap = float((card.norm_llr.cpu() - cpu.norm_llr).abs().max())
+    iters = (int(card.iters_run), int(cpu.iters_run))
+    log(f"  {tag}: frames equal {frac:.6f}, iters {iters[0]} / {iters[1]}, "
+        f"norm max |diff| {norm_gap:g}, converged "
+        f"{float(card.ok.float().mean()):.4f}")
+    if exact and (frac != 1.0 or iters[0] != iters[1] or norm_gap != 0.0):
+        fail(f"{tag}: the card differs from the CPU")
+    if not exact and frac < 0.99:
+        fail(f"{tag}: the card agrees with the CPU on {frac:.4f} of frames")
+    if not torch.isfinite(card.norm_llr).all():
+        fail(f"{tag}: non-finite outputs")
+
+
+def phase_reference(dev, smi: str) -> None:
+    """Phase 12: the CLI's default path (``--fidelity reference``: the std
+    graph, the legacy check rule and noise) and the other plain decoders,
+    none of which is a kernel."""
+    import torch
+
+    from ldpc_tpu_torch.ops.layered import make_qc_layered_decoder
+    from ldpc_tpu_torch.ops.spa import make_decoder
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import load_code, run_simulation
+
+    code = load_code(W576)
+    k = code.k
+    torch.cuda.synchronize(dev)  # the memory statistics need a context
+
+    # ---- 12a. the CLI at its default fidelity ----
+    zero_qc_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    d, secs = run_cli(["--matrix", W576, "--blocks", str(CLI_BLOCKS),
+                       "--iterations", "5", "--ber", "--fer",
+                       "--initial-snr", "3.5", "--end-snr", "3.5"])
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    run = qc_launches()
+    cfg, p = d["config"], d["snr_points"][0]
+    frames, errors = p["total_blocks"], p["failed_blocks"]
+    gap, bar = five_se(errors, frames, REF_DEEP)
+    log(f"CLI --fidelity reference ({smi}): wimax 576 SPA-5 3.5 dB, "
+        f"{frames} frames (batch {cfg['batch'] or 'auto'}) in {secs:.3f} s = "
+        f"{frames * k / secs:.6g} info bits/s (set-up included), FER "
+        f"{p['fer']:.6f} (TPU record {REF_DEEP[0] / REF_DEEP[1]:.6f} of "
+        f"{REF_DEEP[1]}, |diff| {gap:.6f}, 5 combined sigma {bar:.6f}), BER "
+        f"{p['ber']:.4e}, peak memory {peak_gb:.3f} GB, graph "
+        f"{cfg['decode_graph']}, rule {cfg['check_rule']}, noise "
+        f"{cfg['noise_model']}, QC kernel launches {run}")
+    if (cfg["decode_graph"], cfg["check_rule"], cfg["noise_model"]) != (
+            "std", "legacy", "legacy"):
+        fail(f"the CLI's default is not the reference fidelity: {cfg}")
+    if frames != CLI_BLOCKS or any(run.values()):
+        fail(f"the reference-fidelity CLI ran {frames} frames, launches {run}")
+    if gap > bar:
+        fail(f"reference-fidelity FER {p['fer']:.6f} is more than 5 sigma "
+             f"from the TPU record")
+    cli_fer = (errors, frames)
+
+    # ---- 12b. the adaptive sweep of examples/wimax576_adaptive ----
+    rec = json.loads((ROOT / ADAPTIVE_RECORD).read_text())
+    d, secs = run_cli(ADAPTIVE_ARGS)
+    log(f"CLI --adaptive ({smi}): 6 points x 20000 frames in {secs:.3f} s")
+    for a, b in zip(d["snr_points"], rec["snr_points"]):
+        gap, bar = five_se(a["failed_blocks"], a["total_blocks"],
+                           (b["failed_blocks"], b["total_blocks"]))
+        log(f"  {a['snr_db']:.1f} dB: FER {a['fer']:.6f} (TPU {b['fer']:.6f}, "
+            f"|diff| {gap:.6f}, 5 sigma {bar:.6f}), BER {a['ber']:.4e} (TPU "
+            f"{b['ber']:.4e}), interleaver {a['interleaver']}")
+        if gap > bar:
+            fail(f"adaptive FER at {a['snr_db']} dB is more than 5 sigma "
+                 "from the TPU record")
+    if d["adaptation_log"] != rec["adaptation_log"]:
+        fail(f"the adaptation log differs from {ADAPTIVE_RECORD}: "
+             f"{d['adaptation_log']}")
+    log(f"  adaptation log equal to {ADAPTIVE_RECORD} "
+        f"({len(rec['adaptation_log'])} entries)")
+
+    # ---- 12c. one point each: R-U, bit-flipping, the layered plain decoder
+    def point(tag, **kw):
+        opts = SimOptions(matrix=W576, ber=True, fer=True, seed=3, quiet=True,
+                          **kw)
+        zero_qc_launches()
+        t0 = time.perf_counter()
+        res = run_simulation(opts, device=dev)
+        secs = time.perf_counter() - t0
+        q = res.snr_points[0]
+        run = qc_launches()
+        log(f"  {tag}: FER {q.fer:.6f} of {q.total_blocks}, BER {q.ber:.4e}, "
+            f"{q.total_blocks * k / secs:.6g} info bits/s, launches {run}")
+        if not (0.0 <= q.fer <= 1.0 and math.isfinite(q.ber)):
+            fail(f"{tag}: FER {q.fer}, BER {q.ber}")
+        return q, run
+
+    log("one point each (wimax 576):")
+    q, run = point("richardson-urbanke, reference fidelity, SPA-5 3.5 dB",
+                   encoding_method="richardson-urbanke", blocks=4 * 8192,
+                   iterations=5, initial_snr=3.5, end_snr=3.5)
+    gap, bar = five_se(q.failed_blocks, q.total_blocks, cli_fer)
+    if gap > bar or any(run.values()):
+        fail(f"R-U FER {q.fer:.6f} is more than 5 sigma from the standard "
+             f"encoder's {cli_fer[0] / cli_fer[1]:.6f} (or launches {run})")
+    q, run = point("bit-flipping, exact fidelity, 20 it 6 dB",
+                   decoder="bitflipping", fidelity="exact", blocks=8192,
+                   iterations=20, initial_snr=6.0, end_snr=6.0)
+    if q.fer >= 1.0 or any(run.values()):
+        fail(f"bit-flipping at 6 dB: FER {q.fer}, launches {run}")
+    lay = dict(fidelity="exact", decoder="normalized-minsum",
+               schedule="layered", layer_order="paired", blocks=4 * 8192,
+               iterations=8, initial_snr=2.0, end_snr=2.0, fused="off")
+    qx, run_x = point("--kernel xla --schedule layered paired NMS-8 2 dB",
+                      kernel="xla", **lay)
+    qp, run_p = point("the same through K3 (--kernel pallas --fused off)",
+                      kernel="pallas", **lay)
+    if qx != qp or any(run_x.values()) or run_p["qc_decoder"] < 1:
+        fail(f"layered plain decoder against K3: {qx} / {qp}, launches "
+             f"{run_x} / {run_p}")
+
+    # ---- 12d. the plain decoders on the card against the CPU ----
+    log(f"plain decoders on the card against the CPU (B={PLAIN_BATCH}):")
+    info = {g: code.standard_encode_spec.info_pos(g) for g in ("std", "orig")}
+    llr_std = graph_llrs(code, "std", PLAIN_BATCH, 3.0, 11, dev)
+    llr_orig = graph_llrs(code, "orig", PLAIN_BATCH, 2.0, 12, dev, "exact")
+    for variant, exact in (("spa", False), ("normalized_minsum", True)):
+        hold_plain(f"flooding std legacy {variant}-5",
+                   make_decoder(code.layout("std"), info["std"], 5, variant,
+                                rule="legacy", device=dev), llr_std, exact)
+    for variant, exact in (("offset_minsum", True), ("spa", False)):
+        hold_plain(f"flooding orig exact {variant}-8",
+                   make_decoder(code.layout("orig"), info["orig"], 8, variant,
+                                device=dev), llr_orig, exact)
+    hold_plain("bit-flipping orig 20",
+               make_decoder(code.layout("orig"), info["orig"], 20,
+                            "bitflipping", device=dev), llr_orig, True)
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+
+    order = [bi for g in paired_layer_groups(code.qc) for bi in g]
+    for variant, exact in (("normalized_minsum", True), ("spa", False)):
+        hold_plain(f"layered paired {variant}-8",
+                   make_qc_layered_decoder(code.qc, info["orig"], 8, variant,
+                                           layer_order=order, device=dev),
+                   llr_orig, exact)
+
+    # ---- 12e. the plain decoders timed at the CLI's batch ----
+    # std at the reference-fidelity point above; orig and layered at the
+    # exact fidelity's waterfall (2.0 dB, exact noise, speed 1/2)
+    log(f"plain decoders per batch ({smi}; SPA-5, auto batch):")
+    for name in (W576, W1152):
+        c = load_code(name)
+        B = SimOptions(blocks=1 << 20).auto_batch(c.n)
+        for graph, rule, snr, noise, speed in (
+                ("std", "legacy", 3.5, "legacy", 1.0),
+                ("orig", "exact", 2.0, "exact", 0.5),
+                ("layered", "exact", 2.0, "exact", 0.5)):
+            g = "orig" if graph == "layered" else graph
+            llr = graph_llrs(c, g, B, snr, 21, dev, noise, speed)
+            ipos = c.standard_encode_spec.info_pos(g)
+            if graph == "layered":
+                dec = make_qc_layered_decoder(c.qc, ipos, 5, "spa", device=dev)
+            else:
+                dec = make_decoder(c.layout(g), ipos, 5, "spa", rule=rule,
+                                   device=dev)
+            dec(llr)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                res = dec(llr)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+            lay = c.layout(g)
+            log(f"  {c.name} {graph} ({rule} rule, {snr} dB {noise} noise; m "
+                f"{lay.m}, dc {lay.dc}, dv {lay.dv}): B={B} {ms:.3f} ms per "
+                f"batch = "
+                f"{B * c.k / ms * 1e3:.6g} info bits/s, {int(res.iters_run)} "
+                f"iterations, FER {1 - float(res.ok.float().mean()):.6f}, "
+                f"peak memory {peak_gb:.3f} GB over the inputs")
+            del llr, dec, res
+            torch.cuda.empty_cache()
+
+    # ---- 12f. where a plain batch's time goes (torch.profiler) ----
+    from ldpc_tpu_torch.bench import device_breakdown
+    from ldpc_tpu_torch.sim.runner import PointExecutor
+
+    for tag, snr, kw in (
+            ("reference fidelity, flooding std SPA-5", 3.5, {}),
+            ("--kernel xla exact, flooding orig SPA-5", 2.0,
+             dict(fidelity="exact", kernel="xla", speed=0.5))):
+        opts = SimOptions(matrix=W576, iterations=5, ber=True, fer=True,
+                          blocks=1 << 20, seed=5, quiet=True, **kw)
+        ex = PointExecutor(code, opts, device=dev)
+        B = ex.batch
+        span, busy, top = device_breakdown(ex, snr, batch=B, n_batches=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.run_point(snr, 2 * B, 7777, 0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 2
+        if span is None:
+            log(f"plain batch split ({smi}; {tag}): the profiler saw no "
+                f"device events (not measured); host {wall:.3f} ms a batch")
+            continue
+        log(f"plain batch split ({smi}; {tag}, wimax 576, B={B}, 2 batches "
+            f"under torch.profiler): device busy {busy / 2:.3f} ms, span "
+            f"{span / 2:.3f} ms a batch; host {wall:.3f} ms a batch without "
+            f"the profiler (device busy {100 * busy / 2 / wall:.1f}% of it); "
+            f"{sum(c for _, _, c in top) / 2:.0f} device kernels a batch; top: "
+            + ", ".join(f"{n[:48]} {ms / 2:.3f} ms x{c // 2}"
+                        for n, ms, c in top[:6]))
 
 
 # ------------------------ the decoders' options: flooding, int8, alpha ----
@@ -1531,6 +1886,9 @@ def main(argv=None) -> int:
         log(f"attainable ms ({smi}): {tag}: {1e3 * v[4] / rate:.5f} (bound "
             f"{v[2]:.5f} by {v[3]}, {v[0]:.4f} ms, plain {v[1]:.3f} ms, "
             f"{v[5]} blocks/SM)")
+
+    # ---- 12. the reference-fidelity path and the plain decoders ----
+    phase_reference(dev, smi)
 
     if args.fer_batches:
         phase_fer(args.fer_batches)

@@ -1,6 +1,7 @@
-"""Analyses of the port. Only the roofline accounting is ported so far; the
-rest of ``ldpc_tpu/analysis/`` (failures, importance, learned min-sum,
-density evolution, EXIT, graph statistics) is queued in ROADMAP.md."""
+"""Analyses of the port: the roofline accounting, graph statistics
+(``graph_stats``) and EXIT charts (``exit``). The rest of
+``ldpc_tpu/analysis/`` (failures, importance, learned min-sum, density
+evolution) is queued in ROADMAP.md."""
 
 from ldpc_tpu_torch.analysis.roofline import (
     CLASSES,

@@ -5,8 +5,8 @@ from that package): Gauss-Jordan over GF(2) on bit-packed rows, trimming of
 rank-deficient matrices, the systematic generator G = [I_k | A^T], the padded
 edge layout, and the quasi-cyclic factorization the CUDA decode loop runs on.
 
-Only the standard encoder is carried over. The Richardson-Urbanke encoder is
-still to be ported (ROADMAP.md, queue 1) and raises NotImplementedError.
+Both encoders lower to one EncodeSpec: the standard systematic encoder
+(G = [I_k | A^T]) and the Richardson-Urbanke encoder (ldpc_tpu_torch.models.ru).
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ class LDPCCode:
         # the proper LDPC Tanner graph; H_std is kept for bit-exact parity
         # with the reference decoder, which runs on H_std (spa_decoder.py:31).
         self.layout_orig = build_edge_layout(self.n, alist.m, alist.row_idx, alist.col_idx)
-
+        self._ru_cache: dict[int | None, EncodeSpec] = {}
 
     def layout(self, graph: str = "orig") -> EdgeLayout:
         if graph == "std":
@@ -233,10 +233,13 @@ class LDPCCode:
         )
 
     def richardson_urbanke_spec(self, gap: int | None = None) -> EncodeSpec:
-        raise NotImplementedError(
-            "the Richardson-Urbanke encoder is not ported yet (ROADMAP.md, "
-            "queue 1): use encoding_method='standard'"
-        )
+        """Richardson-Urbanke encoder (see ldpc_tpu_torch.models.ru)."""
+        key = gap
+        if key not in self._ru_cache:
+            from ldpc_tpu_torch.models import ru
+
+            self._ru_cache[key] = ru.prepare_richardson_urbanke(self, target_gap=gap)
+        return self._ru_cache[key]
 
     def encode_spec(self, method: str, ru_gap: int | None = None) -> EncodeSpec:
         if method in ("standard", "STANDARD"):

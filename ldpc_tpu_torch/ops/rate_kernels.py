@@ -16,8 +16,9 @@ instructions K1-K3 run: accurate ``tanhf``, ``logf``, IEEE ``/``,
 ``sqrtf``, ``cosf``, and FMUL + FADD where the source writes ``x * a + b``.
 They are bound by instruction issue: the tile is read once and written once.
 What one body costs on the card (SASS instructions of the hot loop over its
-bodies, ``loop_instructions``) is printed by ``chip_smoke.py`` and kept in
-PERF.md.
+bodies, ``loop_instructions``) and which pipes they load (``pipe_counts``,
+priced by ``pipe_bound`` at compute capability 9.0's rates) are printed by
+``chip_smoke.py`` and kept in PERF.md.
 
 Layout: one value per thread in a register. The tile is [R, C] with R a
 multiple of 32; warp w holds rows 32*(w // C) .. +31 of column w % C, lane
@@ -267,12 +268,12 @@ _SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _SASS_BRA = re.compile(r"\bBRA\b(?:\.\w+)*\s+(?:[^,;]+,\s*)?(0x[0-9a-f]+)")
 
 
-def loop_instructions(sass: str) -> dict[str, int]:
-    """``{function: instructions of its hot loop}`` from ``cuobjdump -sass``
-    text: the instructions (NOPs excluded) from the target of the
+def hot_loops(sass: str) -> dict[str, list[str]]:
+    """``{function: the instructions of its hot loop}`` from ``cuobjdump
+    -sass`` text: the instructions (NOPs excluded) from the target of the
     function's widest conditional backward branch up to that branch; a
-    function with no such branch is left out. Static counts: a branch's
-    both sides count where the compiler keeps them inside the loop."""
+    function with no such branch is left out. Static: a branch's both sides
+    count where the compiler keeps them inside the loop."""
     funcs: dict[str, list[tuple[int, str]]] = {}
     cur = None
     for line in sass.splitlines():
@@ -294,24 +295,96 @@ def loop_instructions(sass: str) -> dict[str, int]:
                                       or addr - target > best[1] - best[0]):
                     best = (target, addr)
         if best is not None:
-            out[name] = sum(1 for addr, text in instrs
-                            if best[0] <= addr <= best[1]
-                            and not text.startswith("NOP"))
+            out[name] = [text for addr, text in instrs
+                         if best[0] <= addr <= best[1]
+                         and not text.startswith("NOP")]
     return out
 
 
-def library_loop_instructions(lib) -> dict[str, int]:
-    """:func:`loop_instructions` of a built library (``cuobjdump`` from the
-    toolkit that holds ``nvcc``)."""
+def loop_instructions(sass: str) -> dict[str, int]:
+    """``{function: instructions of its hot loop}`` (:func:`hot_loops`)."""
+    return {name: len(body) for name, body in hot_loops(sass).items()}
+
+
+# What each pipe retires per SM per clock on compute capability 9.0, in
+# thread instructions (CUDA C++ Programming Guide, "Throughput of Native
+# Arithmetic Instructions (Number of Results per Clock Cycle per
+# Multiprocessor)"): 32-bit floating-point add, multiply, multiply-add 128;
+# the reciprocal, reciprocal square root, base-2 logarithm and exponential,
+# sine and cosine of the multi-function unit 16; 32-bit integer add,
+# multiply, shift, compare, minimum, maximum and bitwise logic 64; "all
+# other type conversions" 16. Shared memory serves 32 lanes (128 bytes) per
+# clock. The table prices neither control flow nor the float compares and
+# selects, which the FP32 pipe counts here; control and unknown opcodes are
+# priced by issue alone.
+PIPE_RATE = {"fp32": 128, "mufu": 16, "int": 64, "conv": 16, "shared": 32}
+ISSUE_RATE = 4 * 32  # four schedulers issue one warp instruction each a clock
+PIPE_OPCODES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FSET"),
+    "mufu": ("MUFU",),
+    "int": ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+            "ISETP", "SEL", "IMNMX", "IABS", "LEA", "PRMT", "MOV",
+            "IMUL", "BMSK", "FLO", "POPC", "BREV", "PLOP3", "P2R", "R2P",
+            "S2R", "CS2R", "S2UR", "VOTE", "SHFL", "UMOV", "UIADD3",
+            "ULDC", "ULOP3", "USHF", "UIMAD", "ISCADD"),
+    "conv": ("I2F", "F2I", "F2F", "I2I", "FRND", "I2FP", "F2IP"),
+    "shared": ("LDS", "STS", "ATOMS", "LDSM"),
+    "control": ("BRA", "BAR", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "RET",
+                "CALL", "JMP", "BREAK", "YIELD", "DEPBAR", "NANOSLEEP",
+                "MEMBAR", "ERRBAR", "CCTL", "WARPGROUP"),
+}
+_PIPE_OF = {op: pipe for pipe, ops in PIPE_OPCODES.items() for op in ops}
+PIPES = (*PIPE_OPCODES, "other")
+
+
+def opcode(text: str) -> str:
+    """The opcode of one SASS instruction, predicate and modifiers
+    dropped: ``@!P0 BRA 0x10`` -> ``BRA``, ``MUFU.EX2 R1, R2`` -> ``MUFU``."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def pipe_counts(instructions) -> dict[str, int]:
+    """Instructions of a hot loop by pipe (:data:`PIPE_OPCODES`); an opcode
+    of no listed pipe counts under ``other``, never dropped."""
+    counts = dict.fromkeys(PIPES, 0)
+    for text in instructions:
+        counts[_PIPE_OF.get(opcode(text), "other")] += 1
+    return counts
+
+
+def pipe_bound(counts: dict[str, float], units: float,
+               issue_peak: float) -> tuple[float, str, dict[str, float]]:
+    """The least time (s) of ``units`` repetitions of a loop body of
+    ``counts`` instructions by pipe, on a card whose issue peak is
+    ``issue_peak`` thread instructions a second (SMs x 128 x clock): the
+    larger of the issue term (every instruction at 128 a clock per SM) and
+    each pipe's term (its instructions at its :data:`PIPE_RATE`). Returns
+    ``(seconds, the term that sets it, every term)``."""
+    total = sum(counts.values())
+    terms = {"issue": units * total / issue_peak}
+    for pipe, rate in PIPE_RATE.items():
+        terms[pipe] = units * counts.get(pipe, 0) * (ISSUE_RATE / rate) \
+            / issue_peak
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def library_hot_loops(lib) -> dict[str, list[str]]:
+    """:func:`hot_loops` of a built library (``cuobjdump`` from the toolkit
+    that holds ``nvcc``)."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    return loop_instructions(sass)
+    return hot_loops(sass)
 
 
-def instructions_per_body(loops: dict[str, int]) -> dict[str, float]:
-    """K4's hot-loop instructions per body, by op class (the loop runs
-    :data:`UNROLL` bodies; its counter and branch are spread over them)."""
-    return {op: loops[f"rate_chain_{op}"] / UNROLL for op in OPS
+def instructions_per_body(loops: dict[str, list[str]]) -> dict[str, float]:
+    """K4's hot-loop instructions per body, by op class, from
+    :func:`hot_loops` (the loop runs :data:`UNROLL` bodies; its counter and
+    branch are spread over them)."""
+    return {op: len(loops[f"rate_chain_{op}"]) / UNROLL for op in OPS
             if f"rate_chain_{op}" in loops}

@@ -5,9 +5,9 @@ that package), so one options bean means the same thing on both sides.
 `SimOptions` carries the reference's full flag surface
 (`python_ldpc_app/main.py:456-523`, `settings.py:4-89`) plus the simulator's
 own knobs (decode graph, check-node rule, noise model, decoder variant,
-device batch size, seed). The port honours the knobs of the fused path
-(ldpc_tpu_torch.sim.runner) and refuses the others until they are ported
-(ROADMAP.md). `fidelity` presets bundle the compat quirks:
+device batch size, seed). The port honours every knob of a single-device
+run (ldpc_tpu_torch.sim.runner); meshes and the parallel sweep are still
+to be ported (ROADMAP.md). `fidelity` presets bundle the compat quirks:
 
   'reference' -- decode on H_std with the reference's legacy check-node rule
                  and legacy (sigma^2-as-stddev) noise: BER/FER curves match
@@ -90,8 +90,9 @@ class SimOptions:
     check_rule: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     noise_model: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     batch: int = 0  # device batch of codewords; 0 -> auto
-    # 'auto' / 'pallas': the port's QC kernels (K1-K3); 'xla': the XLA
-    # decoder on EdgeLayout, still to be ported (ROADMAP.md)
+    # 'auto' / 'pallas': the port's QC kernels (K1-K3) where they take the
+    # configuration; 'xla': the plain PyTorch decoders (flooding on
+    # EdgeLayout, or layered QC), the JAX package's XLA decoders
     kernel: str = "auto"
     # fully-fused Monte-Carlo step: channel noise, LLRs, decode and counters
     # in one kernel (ldpc_tpu_torch.ops.mc_kernels) where the configuration

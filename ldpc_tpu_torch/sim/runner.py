@@ -19,17 +19,23 @@ metric, a scheduled alpha or int8 extrinsics):
    re-decoding them from the emitted LLRs with the full budget;
 5. the failed-frames BER rule, ``reduce_block_stats`` and ``pack_counters``.
 
-The unfused path (``:891-946``), for everything else the QC decoder takes:
-any interleaver, Gray QAM, shorten/puncture and ``fused='off'``. The batch's
-key splits into three generators (info bits, interleaver, channel):
+The unfused path (``:891-946``), for everything else: any interleaver, Gray
+QAM, shorten/puncture, ``fused='off'``, and every configuration the QC
+kernels do not take (the ``std`` graph and legacy rule of ``--fidelity
+reference``, non-QC codes, bit-flipping, ``--kernel xla``). The batch's key
+splits into three generators (info bits, interleaver, channel):
 
 1. random info bits, the last S zeroed under shorten;
 2. the systematic encode into [B, n];
 3. interleave; the channel (ops.channel); deinterleave;
 4. punctured positions become erasures (``llr * mask``), shortened ones
    known zeros (-60);
-5. the standalone QC decoder (ops.qc_kernels.QCDecoder, the CUDA port of
-   ``spa_pallas.make_qc_decoder``);
+5. the decoder :func:`_select_decoder` picks as the JAX runner does: the
+   standalone QC decoder (ops.qc_kernels.QCDecoder, the CUDA port of
+   ``spa_pallas.make_qc_decoder``) for what it takes under ``--kernel
+   auto|pallas``, else the plain PyTorch decoders: flooding on the code's
+   EdgeLayout (ops.spa.make_decoder, bit-flipping included), or the layered
+   QC decoder (ops.layered) for ``--kernel xla --schedule layered``;
 6. ``block_stats`` with the failed-frames BER rule, ``reduce_block_stats``
    and ``pack_counters``.
 
@@ -45,14 +51,13 @@ every few batches under ``target_errors``). Every decode op is per codeword,
 so a two-phase split gives the same counters as a single pass, and a point
 run in pieces (``start_batch``) gives the same counters as one run.
 
-Still to be ported (ROADMAP.md): the XLA decoder on ``EdgeLayout`` (``--kernel
-xla``, the legacy rule and the ``std`` graph of ``--fidelity reference``,
-non-QC codes), bit-flipping, the Richardson-Urbanke encoder, ``--profile``,
-meshes, the parallel sweep, adaptive mode and the CLI.
+``--profile DIR`` wraps the sweep in a ``torch.profiler`` trace written to
+DIR. Still to be ported (ROADMAP.md): meshes and the parallel sweep.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -74,6 +79,7 @@ from ldpc_tpu_torch.ops.encode import (
     random_info_bits,
 )
 from ldpc_tpu_torch.ops.interleave import make_interleaver
+from ldpc_tpu_torch.ops.layered import make_qc_layered_decoder
 from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
 from ldpc_tpu_torch.ops.metrics import (
     BlockCounters,
@@ -83,6 +89,7 @@ from ldpc_tpu_torch.ops.metrics import (
     reduce_block_stats,
 )
 from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
+from ldpc_tpu_torch.ops.spa import make_decoder
 from ldpc_tpu_torch.sim.config import SimOptions
 from ldpc_tpu_torch.sim.results import (
     SimulationConfig,
@@ -222,53 +229,81 @@ def check_decoder_options(opts: SimOptions) -> None:
 
 
 def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
-                    max_iterations: int, device: torch.device):
-    """The decoder of the unfused path and its ``kernel_used`` name
-    (``runner.py:237-388``): the QC decoder (CUDA, or its plain version for
-    the CPU) for a QC code with the exact rule on the original graph and an
-    SPA / min-sum variant, when ``kernel`` is 'auto' or 'pallas'. Everything
-    else needs the XLA decoder on ``EdgeLayout`` or bit-flipping, which are
-    still to be ported (ROADMAP.md)."""
+                    max_iterations: int, device: torch.device,
+                    graph: str = "orig"):
+    """The decoder of the unfused path and its ``kernel_used`` name, routed
+    as the JAX runner routes it (``runner.py:237-388``).
+
+    The QC decoder (CUDA, or its plain version for the CPU) takes a QC code
+    with the exact rule on the original graph and an SPA / min-sum variant
+    under ``--kernel auto`` or ``pallas``; everything else goes to the plain
+    PyTorch decoders: the layered QC decoder for ``--schedule layered``
+    (the paired order flattened), else the flooding decoder (or
+    bit-flipping) on ``code.layout(graph)``. Their ``kernel_used`` base is
+    ``torch``; the QC decoder's is ``cuda`` or ``cpu``."""
     variant = opts.decoder_variant
+    want = opts.kernel
     schedule = opts.schedule or "flooding"
-    if opts.kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"Unknown kernel: {opts.kernel!r}")
-    missing = [
-        what for what, bad in (
-            ("a quasi-cyclic code", code.qc is None),
-            ("check_rule='exact' (the legacy rule of --fidelity reference "
-             "needs the XLA decoder)", opts.check_rule != "exact"),
-            ("decode_graph='orig' (the std graph of --fidelity reference "
-             "needs the XLA decoder)",
-             opts.decode_graph not in ("orig", "original")),
-            ("an SPA/min-sum decoder (bit-flipping is not ported)",
-             variant not in VARIANTS),
-        ) if bad
-    ]
-    if opts.msg_store == "int8" and (opts.kernel == "xla" or missing):
+    if want not in ("auto", "pallas", "xla"):
+        raise ValueError(f"Unknown kernel: {want!r}")
+    eligible = (
+        variant in VARIANTS
+        and opts.check_rule == "exact"
+        and graph in ("orig", "original")
+        and code.qc is not None
+    )
+    use_qc = eligible and want in ("auto", "pallas")
+    if want == "pallas" and not eligible:
+        raise ValueError(
+            "kernel='pallas' requires a quasi-cyclic code, check_rule='exact', "
+            "decode_graph='orig' and an SPA/min-sum variant"
+        )
+    if schedule == "layered" and not eligible:
+        raise ValueError(
+            "schedule='layered' requires a quasi-cyclic code, "
+            "check_rule='exact', decode_graph='orig' and an SPA/min-sum "
+            "variant (base rows are the layers)"
+        )
+    if opts.msg_store == "int8" and not use_qc:
         raise ValueError(
             "--msg-store int8 is a Pallas-kernel storage knob: it requires "
             "a configuration the QC kernel accepts (QC code, "
             "check_rule='exact', decode_graph='orig', min-sum variant, "
             "kernel 'auto' on TPU or 'pallas')"
         )
-    if opts.kernel == "xla":
-        raise NotImplementedError(
-            "--kernel xla: the XLA decoder on EdgeLayout is not ported yet "
-            "(ROADMAP.md)")
-    if missing:
-        raise NotImplementedError(
-            "the port decodes with the QC decoder only so far; the XLA "
-            "decoder on EdgeLayout and bit-flipping are still to be ported "
-            "(ROADMAP.md). This configuration needs " + ", ".join(missing))
     layer_groups = resolve_layer_groups(code.qc, opts, schedule)
-    decoder = QCDecoder(
-        code.qc, info_pos, max_iterations, variant,
-        alpha=opts.minsum_alpha, beta=opts.minsum_beta, schedule=schedule,
-        track_norm=opts.normalized_llr, msg_store=opts.msg_store,
-        layer_groups=layer_groups, check_every=opts.check_every,
-    )
-    kind = "cuda" if device.type == "cuda" else "cpu"
+    if opts.check_every > 1 and not use_qc:
+        raise ValueError(
+            "--check-every > 1 is a Pallas decode-loop knob: it requires a "
+            "configuration the QC kernel accepts (QC code, "
+            "check_rule='exact', decode_graph='orig', SPA/min-sum variant, "
+            "kernel 'auto' on TPU or 'pallas')"
+        )
+    if use_qc:
+        decoder = QCDecoder(
+            code.qc, info_pos, max_iterations, variant,
+            alpha=opts.minsum_alpha, beta=opts.minsum_beta, schedule=schedule,
+            track_norm=opts.normalized_llr, msg_store=opts.msg_store,
+            layer_groups=layer_groups, check_every=opts.check_every,
+        )
+        kind = "cuda" if device.type == "cuda" else "cpu"
+    elif schedule == "layered":
+        decoder = make_qc_layered_decoder(
+            code.qc, info_pos, max_iterations, variant,
+            alpha=opts.minsum_alpha, beta=opts.minsum_beta,
+            # the paired schedule as its flattened serial order
+            layer_order=(None if layer_groups is None
+                         else [bi for g in layer_groups for bi in g]),
+            device=device,
+        )
+        kind = "torch"
+    else:
+        decoder = make_decoder(
+            code.layout(graph), info_pos, max_iterations, variant,
+            rule=opts.check_rule, alpha=opts.minsum_alpha,
+            beta=opts.minsum_beta, device=device,
+        )
+        kind = "torch"
     if schedule == "layered":
         kind += "+layered"
     if layer_groups is not None:
@@ -333,9 +368,6 @@ class PointExecutor:
             )
         self.batch = opts.auto_batch(code.n)
         check_decoder_options(opts)
-        if opts.encoding_method not in ("standard", "STANDARD"):
-            raise NotImplementedError(
-                "the Richardson-Urbanke encoder is not ported yet (ROADMAP.md)")
 
         spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
         info_pos = spec.info_pos(self.graph)
@@ -464,7 +496,7 @@ class PointExecutor:
             il_kind, code.n, s_param=opts.s_param, seed=opts.seed, device=dev)
         self._channel = make_channel_fn(opts.mode, self.modulation, n=code.n)
         self._decoder, self.kernel_used = _select_decoder(
-            code, opts, info_pos, self.max_iterations, dev)
+            code, opts, info_pos, self.max_iterations, dev, self.graph)
 
     # ------------------------------------------------------------ batches --
 
@@ -551,7 +583,7 @@ class PointExecutor:
             llr = llr * self._llr_punct
         if self._S:  # shortened info bits are known zeros
             llr = llr * self._llr_keep - self._llr_known
-        res = self._decoder.decode(llr.contiguous())
+        res = self._decoder(llr.contiguous())
         stats = block_stats(u[:, :self.k_active], res, self._info_pos,
                             exact=self.opts.exact_ber)
         return stats, res.iters_run
@@ -855,6 +887,22 @@ def load_checkpoint(
     return prior
 
 
+def _profiled_sweep(profile_dir: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the sweep written to ``profile_dir``
+    (TensorBoard layout, ``runner.py:1314`` ``_profiled_sweep``), host
+    activity and, on the card, its kernels; no trace without a
+    directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
 def run_simulation(
     opts: SimOptions,
     code: LDPCCode | None = None,
@@ -867,10 +915,6 @@ def run_simulation(
     ``opts.output_json`` / ``opts.output_csv`` when set. ``device=None``
     means the card."""
     opts = opts.resolved()
-    if opts.profile:
-        raise NotImplementedError(
-            "--profile: the port has no profiler trace of the sweep yet "
-            "(ROADMAP.md)")
     device = resolve_device(device)
     start_time = time.time()
     if code is None:
@@ -887,39 +931,40 @@ def run_simulation(
 
     say("Processing blocks across SNR points...")
     say("-" * 60)
-    for idx, snr in enumerate(
-        snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr)
-    ):
-        if idx < len(snr_points):
-            continue  # completed before resume
-        if executor is None:
-            executor = PointExecutor(code, opts, device=device)
-        say(f"\nSNR: {snr:.2f} dB")
-        t_point = time.time()
-        stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
-        point_s = time.time() - t_point
-        point = build_point_result(snr, stats, opts, executor.k_active)
-        snr_points.append(point)
-        if opts.normalized_llr:
-            say(f"  Normalized LLR: {point.avg_normalized_llr:.6f}")
-        if opts.fer:
-            say(f"  FER: {point.fer:.6f}")
-        if opts.ber:
-            say(f"  BER: {point.ber:.6f}")
-        say(
-            f"  Decoded OK: {point.successful_blocks}/{point.total_blocks} "
-            f"({100.0 * point.successful_blocks / max(point.total_blocks, 1):.2f}%)"
-        )
-        say(
-            f"  Throughput: {stats.blocks / point_s:,.0f} codewords/s "
-            f"({stats.blocks * code.k / point_s:,.0f} info bits/s)"
-        )
-        if opts.checkpoint:
-            SimulationResult(
-                config=config,
-                snr_points=snr_points,
-                wall_clock_seconds=time.time() - start_time,
-            ).to_json(opts.checkpoint)
+    with _profiled_sweep(opts.profile, device):
+        for idx, snr in enumerate(
+            snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr)
+        ):
+            if idx < len(snr_points):
+                continue  # completed before resume
+            if executor is None:
+                executor = PointExecutor(code, opts, device=device)
+            say(f"\nSNR: {snr:.2f} dB")
+            t_point = time.time()
+            stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
+            point_s = time.time() - t_point
+            point = build_point_result(snr, stats, opts, executor.k_active)
+            snr_points.append(point)
+            if opts.normalized_llr:
+                say(f"  Normalized LLR: {point.avg_normalized_llr:.6f}")
+            if opts.fer:
+                say(f"  FER: {point.fer:.6f}")
+            if opts.ber:
+                say(f"  BER: {point.ber:.6f}")
+            say(
+                f"  Decoded OK: {point.successful_blocks}/{point.total_blocks} "
+                f"({100.0 * point.successful_blocks / max(point.total_blocks, 1):.2f}%)"
+            )
+            say(
+                f"  Throughput: {stats.blocks / point_s:,.0f} codewords/s "
+                f"({stats.blocks * code.k / point_s:,.0f} info bits/s)"
+            )
+            if opts.checkpoint:
+                SimulationResult(
+                    config=config,
+                    snr_points=snr_points,
+                    wall_clock_seconds=time.time() - start_time,
+                ).to_json(opts.checkpoint)
 
     say()
     say("=" * 60)

@@ -33,11 +33,14 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 32  # every module of the port was imported
+    assert n_modules >= 43  # every module of the port was imported
     for name in ("ops.qc_kernels", "ops.interleave", "ops.modem",
                  "sim.results", "analysis.__init__", "analysis.roofline",
                  "ops.rate_kernels", "scripts.__init__", "scripts.roofline",
-                 "scripts.attainable_ceiling"):
+                 "scripts.attainable_ceiling", "ops.spa", "ops.layered",
+                 "models.ru", "models.generate", "models.catalog",
+                 "analysis.graph_stats", "analysis.exit", "utils.timing",
+                 "sim.visualization", "sim.adaptive", "cli", "plot_cli"):
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
             name.split(".")[-1] + ".py"))
@@ -110,3 +113,39 @@ def test_cuda_tensor_never_takes_the_plain_version():
     out = dec(torch.ones((code.n, 4)), torch.zeros((code.n, 4)),
               torch.zeros(4))
     assert out[1].all()  # all-positive LLRs are the all-zero codeword
+
+
+def test_plain_decoders_and_cli_default_to_the_card(capsys):
+    """The plain decoders, the adaptive sweep and the CLI run on the card
+    unless the caller asks for the CPU."""
+    from ldpc_tpu_torch.cli import main
+    from ldpc_tpu_torch.models.catalog import MatrixCatalog
+    from ldpc_tpu_torch.ops.layered import make_qc_layered_decoder
+    from ldpc_tpu_torch.ops.spa import make_bitflip_decoder, make_decoder
+    from ldpc_tpu_torch.sim.adaptive import AdaptiveController, ThresholdStrategy
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    code = load_code("builtin:wimax_576_0.5.alist.txt")
+    info = code.standard_encode_spec.info_pos("orig")
+    makers = (
+        lambda dev: make_decoder(code.layout("std"), info, 2, device=dev),
+        lambda dev: make_bitflip_decoder(code.layout("orig"), info, 2,
+                                         device=dev),
+        lambda dev: make_qc_layered_decoder(code.qc, info, 2, device=dev),
+    )
+    if torch.cuda.is_available():
+        for build in makers:
+            assert next(build(None).buffers()).is_cuda
+        return
+    for build in makers:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(None)
+        build("cpu")
+    opts = SimOptions(matrix=code.name, adaptive=True, blocks=8, batch=8,
+                      initial_snr=0.0, end_snr=0.0, quiet=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AdaptiveController(ThresholdStrategy(), MatrixCatalog()) \
+            .run_adaptive_sweep(opts)
+    assert main(["--matrix", code.name, "--blocks", "8", "--quiet"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().out

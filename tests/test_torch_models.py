@@ -45,9 +45,15 @@ def test_code_matches_reference(name, via):
 
 
 def test_richardson_urbanke_is_refused():
-    code = TCode(alist=tstd.make_builtin(CODES[0]), name=CODES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        code.encode_spec("richardson_urbanke")
+    """Refused until the encoder was ported; now the port's spec equals the
+    JAX package's (tests/test_torch_models_ru_catalog.py holds more)."""
+    code = TCode(alist=tstd.make_builtin(CODES[2]), name=CODES[2])
+    ref = JCode(alist=jstd.make_builtin(CODES[2]), name=CODES[2])
+    port, want = code.encode_spec("richardson_urbanke"), \
+        ref.encode_spec("richardson_urbanke")
+    assert port.method == want.method and port.gap == want.gap
+    np.testing.assert_array_equal(port.P, want.P)
+    np.testing.assert_array_equal(port.map_std, want.map_std)
 
 
 def test_carry_rejects_bad_indices():

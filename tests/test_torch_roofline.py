@@ -44,8 +44,12 @@ from ldpc_tpu_torch.ops.rate_kernels import (
     MixChain,
     RateChain,
     body,
+    hot_loops,
     loop_instructions,
     mix_defines,
+    opcode,
+    pipe_bound,
+    pipe_counts,
     thread_index,
 )
 from ldpc_tpu_torch.sim.config import SimOptions
@@ -276,6 +280,32 @@ SASS = """
 
 def test_loop_instructions_reads_the_hot_loop():
     assert loop_instructions(SASS) == {"rate_chain_fma": 5}
+
+
+def test_pipe_counts_sort_the_hot_loop_by_pipe():
+    """The hot loop's opcodes by pipe: FMUL / FADD on the FP32 pipe, IADD3 /
+    ISETP on the integer pipe, the branch under control; an opcode of no
+    listed pipe lands in ``other``, never dropped."""
+    loop = hot_loops(SASS)["rate_chain_fma"]
+    assert [opcode(t) for t in loop] == ["FMUL", "FADD", "IADD3", "ISETP", "BRA"]
+    c = pipe_counts(loop + ["MUFU.TANH R1, R2", "LDS R1, [R2]",
+                            "I2F.S32 R1, R2", "QSPC.E.S P0, RZ, [R2]"])
+    assert c == {"fp32": 2, "mufu": 1, "int": 2, "conv": 1, "shared": 1,
+                 "control": 1, "other": 1}
+
+
+def test_pipe_bound_takes_the_larger_of_issue_and_each_pipe():
+    peak = 132 * 128 * 1.98e9
+    # 2 FP32 + 1 integer: issue (3 at 128 a clock) beats FP32 (2 at 128)
+    t, by, terms = pipe_bound({"fp32": 2, "int": 1}, 1e9, peak)
+    assert by == "issue" and t == pytest.approx(3e9 / peak)
+    assert terms["fp32"] == pytest.approx(2e9 / peak)
+    assert terms["int"] == pytest.approx(2e9 / peak)  # 1 at 64 a clock
+    # 3 MUFU (16 a clock: 24 issue slots) beat 10 instructions' issue
+    t, by, _ = pipe_bound({"fp32": 7, "mufu": 3}, 1e9, peak)
+    assert by == "mufu" and t == pytest.approx(24e9 / peak)
+    t, by, _ = pipe_bound({"other": 5, "control": 1}, 1e6, peak)
+    assert by == "issue" and t == pytest.approx(6e6 / peak)
 
 
 # ------------------------------------------------------------ the slice ----

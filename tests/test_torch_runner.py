@@ -106,18 +106,20 @@ def test_two_phase_settings_and_trip_model():
 
 
 def test_unported_options_are_refused():
-    """What the port does not run yet raises, naming ROADMAP.md: the legacy
-    rule and std graph of --fidelity reference and the XLA decoder.
-    Flooding and int8 extrinsics now run the fused kernels."""
+    """Layered --fidelity reference and --kernel xla raised until the plain
+    decoders were ported: now the first gets the JAX runner's ValueError
+    (layers need the QC graph and the exact rule) and the second runs the
+    layered plain decoder. Flooding and int8 extrinsics run the fused
+    kernels."""
     code = load_code(NAME)
-    for kw, what in ((dict(fidelity="reference"), "legacy rule"),
-                     (dict(kernel="xla"), "xla")):
-        opts = dict(matrix=code.name, iterations=12, fidelity="exact",
-                    batch=B, schedule="layered")
-        opts.update(kw)
-        with pytest.raises(NotImplementedError, match=what) as e:
-            PointExecutor(code, SimOptions(**opts), device="cpu")
-        assert "ROADMAP.md" in str(e.value)
+    opts = dict(matrix=code.name, iterations=12, fidelity="exact", batch=B,
+                schedule="layered")
+    with pytest.raises(ValueError, match="schedule='layered' requires"):
+        PointExecutor(code, SimOptions(**dict(opts, fidelity="reference")),
+                      device="cpu")
+    ex = PointExecutor(code, SimOptions(**dict(opts, kernel="xla")),
+                       device="cpu")
+    assert not ex.fused and ex.kernel_used == "torch+layered"
     ex = PointExecutor(code, SimOptions(matrix=code.name, iterations=12,
                                         fidelity="exact", batch=B,
                                         schedule="flooding"), device="cpu")

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +17,12 @@ import torch
 
 from ldpc_tpu.models import standards as jstd
 from ldpc_tpu.models.code import LDPCCode as JCode
-from ldpc_tpu.models.generate import gallager_regular
 from ldpc_tpu.ops import encode as jencode
 from ldpc_tpu.ops import metrics as jmetrics
 from ldpc_tpu.ops.spa import make_decoder
 from ldpc_tpu.sim import results as jresults
 from ldpc_tpu.sim import runner as jrunner
+from ldpc_tpu_torch.models.generate import gallager_regular
 from ldpc_tpu_torch.sim import runner as trunner
 from ldpc_tpu_torch.sim.config import SimOptions
 from ldpc_tpu_torch.sim.results import SimulationResult
@@ -123,11 +124,12 @@ def test_decoder_choice(kw, fused, kind):
 
 
 @pytest.mark.parametrize("kw,exc,what", [
-    (dict(kernel="xla"), NotImplementedError, "xla"),
-    (dict(fidelity="reference"), NotImplementedError, "legacy rule"),
-    (dict(check_rule="exact", fidelity="reference"), NotImplementedError,
-     "std graph"),
-    (dict(decoder="bitflipping"), NotImplementedError, "bit-flipping"),
+    # refused until the plain PyTorch decoders were ported; now they run on
+    # them (``what``: the executor's kernel_used)
+    (dict(kernel="xla"), None, "torch"),
+    (dict(fidelity="reference"), None, "torch"),
+    (dict(check_rule="exact", fidelity="reference"), None, "torch"),
+    (dict(decoder="bitflipping"), None, "torch"),
     # the JAX runner's refusals (runner.py:248-288)
     (dict(msg_store="int8", decoder="sumproduct"), ValueError,
      "int8 requires a min-sum"),
@@ -148,18 +150,28 @@ def test_decoder_choice(kw, fused, kind):
 def test_unported_or_invalid_configurations_raise(kw, exc, what):
     opts = dict(schedule="flooding", iterations=4, interleaver="random")
     opts.update(kw)
+    if exc is None:
+        ex = PointExecutor(load_code(f"builtin:{W576}"), _opts(**opts),
+                           device="cpu")
+        assert not ex.fused and ex.kernel_used == what
+        return
     with pytest.raises(exc, match=what):
         PointExecutor(load_code(f"builtin:{W576}"), _opts(**opts), device="cpu")
 
 
-def test_non_qc_code_and_profile_raise():
+def test_non_qc_code_and_profile_raise(tmp_path):
+    """Both raised until the plain decoders and the profiler trace were
+    ported: a non-QC code now decodes on the flooding decoder, and
+    ``profile`` writes a torch.profiler trace of the sweep."""
     a = gallager_regular(48, 3, 6, seed=11)
     code = code_from_numpy(a.n, a.m, a.row_idx, a.col_idx, "gallager48")
     assert code.qc is None
-    with pytest.raises(NotImplementedError, match="quasi-cyclic"):
-        PointExecutor(code, _opts(iterations=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="profile"):
-        run_simulation(_opts(profile="trace"), device="cpu")
+    ex = PointExecutor(code, _opts(iterations=4), device="cpu")
+    assert ex.kernel_used == "torch"
+    trace = tmp_path / "trace"
+    run_simulation(_opts(profile=str(trace), blocks=B, iterations=2,
+                         initial_snr=3.0, end_snr=3.0), device="cpu")
+    assert any(f.endswith(".json") for f in os.listdir(trace))
 
 
 def test_snr_steps_match_reference():
