@@ -155,7 +155,29 @@ Phases:
    12f. One ``torch.profiler`` window of two plain batches at wimax 576
    (reference fidelity, and ``--kernel xla`` flooding): device busy against
    the host clock, and the kernels by device time.
-13. One ``kernels`` JSON line, then the device line as the last line.
+13. The parallel sweep, meshes and the analyses (``ldpc_tpu_torch.
+   parallel``, ``analysis.{failures,importance,learned_minsum}``): 13a. K3
+   over 4 points of the bench code in one launch (``sweep_step``): one
+   launch, each point equal to its single-point step, a skip mask [1,0,1,0]
+   (0 trips), bit-equal to its plain version, its ms against 4 single-point
+   launches. 13b. K1 with the codeword offset: halves at b0 = 0 and B/2
+   bit-equal to the whole launch, and K1 timed beside a build of its source
+   without the offset (the counter as it was before), in turns. 13c.
+   ``run_simulation_parallel`` over wimax 576 at 2.0-2.75 dB, layered
+   SPA-12, --exact-ber, --target-errors 100: one K3 launch per batch index,
+   counters equal to ``run_simulation(fused='off')``, FER within 5 combined
+   sigma of ``examples/error_floor/curve.json``, both runs' info bits/s.
+   13d. Two ranks on the one card over gloo: a batch-mesh point (K1 with
+   each rank's offset), an snr=2 mesh sweep and the CLI under
+   ``--distributed --mesh batch=2``, counters equal to one process. 13e.
+   ``--failure-profile`` at 3.5 dB to >= 100 detected failures against
+   ``failure_profile.json`` (5 sigma), then a census of 128 patterns at the
+   census record's 3.25 dB. 13f. ``estimate_point`` at 3.5 dB with the
+   record's supports against ``importance/results.json`` (5 combined
+   sigma). 13g. The learned [12] schedule through ``evaluate_alphas`` at
+   2.5 dB over 40,960 frames against ``learned_minsum/results.json`` (5
+   sigma), and 20 ``train_alphas`` steps that lower a held-out loss.
+14. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -1654,6 +1676,484 @@ def phase_fused_fer() -> None:
     log(f"  (the scalar alpha 0.75 at this point: {scalar:.5f} on the TPU)")
 
 
+# ------------------------------------ the parallel sweep and the analyses ----
+
+CURVE = ROOT / "examples" / "error_floor" / "curve.json"
+PROFILE_REC = ROOT / "examples" / "error_floor" / "failure_profile.json"
+CENSUS_REC = ROOT / "examples" / "error_floor" / "trapping_census.json"
+IS_REC = ROOT / "examples" / "error_floor" / "importance" / "results.json"
+# the error-floor study's decoder: layered SPA-12 serial at wimax 576, exact
+# physics, Eb/N0 per info bit (scripts/error_floor.py)
+FLOOR = dict(matrix="builtin:wimax_576_0.5.alist.txt", iterations=12,
+             schedule="layered", decoder="sumproduct", fidelity="exact",
+             exact_ber=True, speed=0.5, batch=BATCH, ber=True, fer=True,
+             quiet=True)
+PAR_SNRS = (2.0, 2.25, 2.5, 2.75)
+PAR_BLOCKS = 64 * BATCH  # a point's cap; --target-errors 100 stops it first
+RANK_TIMEOUT_S = 300
+NO_OFFSET = ("const unsigned cw = cw0 + (unsigned)b;",
+             "const unsigned cw = (unsigned)b;")
+
+
+def start_no_offset_build() -> tuple:
+    """Start ``nvcc`` on K1's source without the codeword offset (the
+    earlier Philox counter, ``cw = b``), the same C interface, into
+    ``build/chip_smoke``; returns (process, library path)."""
+    from ldpc_tpu_torch.ops import build
+
+    src = (ROOT / CSRC / "mc_decoder.cu").read_text()
+    if src.count(NO_OFFSET[0]) != 1:
+        fail("K1's source has no single codeword-offset line to take out")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    variant = out_dir / "mc_decoder_no_offset.cu"
+    variant.write_text(src.replace(*NO_OFFSET))
+    lib = out_dir / "mc_decoder_no_offset.so"
+    proc = subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(ROOT / CSRC), "-o",
+         str(lib), str(variant)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def bind_library(kernel, path):
+    """(fn, err) of ``kernel``'s C entry point in the library at ``path``,
+    as ``build.Kernel`` binds its own."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes = kernel.argtypes
+    fn.restype = ctypes.c_int
+    err = lib.cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def phase_k3_points(dev, smi: str) -> dict:
+    """Phase 13a: K3 over S=4 points of the bench code (layered SPA-12
+    paired ce2) in one launch of 4 x 4096 frames, through
+    ``PointExecutor.sweep_step``: one launch, each point bit-equal to its
+    single-point step, a skip mask [1,0,1,0] leaving points out (0 trips),
+    the concatenated launch bit-equal to its plain version; then its ms per
+    launch against 4 x the single-point ms."""
+    import torch
+
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, derive_key, load_code
+
+    code = load_code(W1152)
+    opts = SimOptions(matrix=W1152, iterations=ITERS, fidelity="exact",
+                      speed=0.5, batch=BATCH, schedule="layered",
+                      layer_order="paired", check_every=CHECK_EVERY,
+                      fused="off")
+    ex = PointExecutor(code, opts, step_vmapped=True)
+    if ex.kernel_used != "cuda+layered+paired+ce2":
+        fail(f"the sweep step took {ex.kernel_used}")
+    snrs = (1.5, 2.0, 2.5, 3.0)
+    consts = [ex.consts(s) for s in snrs]
+    keys = [derive_key(5, i) for i in range(4)]
+    out = {}
+    for skips in ([0, 0, 0, 0], [1, 0, 1, 0]):
+        QC_KERNEL.launches = 0
+        stats, iters = ex.sweep_step(keys, consts, skips)
+        sync()
+        if QC_KERNEL.launches != 1:
+            fail(f"the sweep step launched K3 {QC_KERNEL.launches} times")
+        for i in range(4):
+            if skips[i]:
+                if int(iters[i]) != 0:
+                    fail(f"skip-masked point {i} ran {int(iters[i])} trips")
+                continue
+            one, it = ex.step(keys[i], consts[i])
+            if not all(torch.equal(a[i], b) for a, b in zip(stats, one)) \
+                    or int(iters[i]) != int(it):
+                fail(f"point {i} of the one launch differs from its own step")
+        log(f"qc_decoder over 4 points, skips {skips}: one launch, each "
+            f"point equal to its single-point launch, trips "
+            f"{iters.tolist()}, FER {(~stats.ok).float().mean(1).tolist()}")
+    # the launch itself, on the concatenated channel LLRs
+    llrs = [ex._draw(keys[i], consts[i])[2] for i in range(4)]
+    cat = torch.cat(llrs)
+    dec = ex._decoder
+    _, err = hold_qc(f"qc_decoder 4 points x {BATCH} in one launch "
+                     f"({plan_tag(dec.plan)})", dec, cat)
+    ms4 = time_ms(lambda: dec.outputs(cat), reps=10)
+    ms1 = [time_ms(lambda x=x: dec.outputs(x), reps=10) for x in llrs]
+    ms4b = time_ms(lambda: dec.outputs(cat), reps=10)
+    log(f"timing qc_decoder 4 points ({smi}): one launch of {4 * BATCH} "
+        f"frames {ms4:.4f} / {ms4b:.4f} ms, the 4 single-point launches "
+        f"{' + '.join(f'{m:.4f}' for m in ms1)} = {sum(ms1):.4f} ms")
+    out.update(err=err, ms4=min(ms4, ms4b), ms1=sum(ms1))
+    return out
+
+
+def phase_k1_offset(dev, smi: str, code, wT, consts, no_offset) -> float:
+    """Phase 13b: K1 with the codeword offset: two half launches (b0 = 0,
+    B/2) bit-equal to the whole launch, LLRs included, and K1 (SPA-12, the
+    main path's single pass) timed beside the build without the offset (the
+    earlier counter), in turns. Returns the largest error."""
+    import torch
+
+    from ldpc_tpu_torch.models.qc import paired_layer_groups
+    from ldpc_tpu_torch.ops.mc_kernels import MC_KERNEL, MCDecoder
+
+    info_pos = code.standard_encode_spec.info_pos("orig")
+    kw = dict(layer_groups=paired_layer_groups(code.qc),
+              check_every=CHECK_EVERY)
+    key = (0x243F6A88, 0x85A308D3)
+    mc1 = MCDecoder(code.qc, info_pos, PHASE1, "spa", emit_llr=True, **kw)
+    whole = mc1(wT, consts, seeds=key)
+    half = BATCH // 2
+    parts = [mc1(wT[:, lo:lo + half].contiguous(), consts, seeds=key, b0=lo)
+             for lo in (0, half)]
+    sync()
+    for i, x in enumerate(whole):
+        if not torch.equal(x, torch.cat([p[i] for p in parts], dim=-1)):
+            fail(f"K1 halves with b0 differ from the whole launch (output {i})")
+    plain = mc1.plain(wT[:, half:].contiguous(), consts, seeds=key, b0=half)
+    err = float((parts[1][5] - plain[5]).abs().max())
+    log(f"K1 codeword offset: halves b0=0 and b0={half} equal to the whole "
+        f"launch ({BATCH} frames, LLRs included); the b0={half} half against "
+        f"its plain version: LLR max |err| {err:.3g}")
+    if err > 1e-4:
+        fail("K1 with b0 outside the channel bar against its plain version")
+    proc, lib = no_offset
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for K1 without the offset:\n{log_text}")
+    mc = MCDecoder(code.qc, info_pos, ITERS, "spa", **kw)
+    mc(wT, consts, seeds=key)  # binds the checkout's library
+    own = MC_KERNEL._fns[()]
+    before = bind_library(MC_KERNEL, lib)
+
+    def timed(fns):
+        MC_KERNEL._fns[()] = fns
+        return time_ms(lambda: mc(wT, consts, seeds=key), reps=20)
+
+    try:
+        t = [timed(own), timed(before), timed(before), timed(own)]
+    finally:
+        MC_KERNEL._fns[()] = own
+    t_own, t_before = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    log(f"timing mc_decoder 12 it ({smi}): with the offset {t[0]:.4f} / "
+        f"{t[3]:.4f} ms, without {t[1]:.4f} / {t[2]:.4f} ms: "
+        f"{100 * (t_own / t_before - 1):+.2f}%")
+    return err
+
+
+def phase_parallel_sweep(smi: str) -> None:
+    """Phase 13c: ``run_simulation_parallel`` over the error-floor curve's
+    first four points (layered SPA-12 at wimax 576, --exact-ber,
+    --target-errors 100) on the card: K3 once per batch index, not once per
+    point; every point's counters equal ``run_simulation(fused='off')``;
+    each FER within 5 combined standard errors of ``curve.json``."""
+    from dataclasses import replace
+
+    import torch
+
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import run_simulation, run_simulation_parallel
+
+    kw = dict(FLOOR, blocks=PAR_BLOCKS, initial_snr=PAR_SNRS[0],
+              end_snr=PAR_SNRS[-1], step_snr=0.25, target_errors=100, seed=0)
+    rec = {p["snr_db"]: p for p in json.loads(CURVE.read_text())["snr_points"]}
+    calls = {"parallel": run_simulation_parallel,
+             "sequential fused=off":
+                 lambda o: run_simulation(replace(o, fused="off"))}
+    for call in calls.values():
+        call(SimOptions(**dict(kw, blocks=BATCH)))  # warm: the same shapes
+    runs = {}
+    for tag in ("parallel", "sequential fused=off", "sequential fused=off",
+                "parallel"):  # in turns
+        QC_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = calls[tag](SimOptions(**kw))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        frames = sum(p.total_blocks for p in res.snr_points)
+        log(f"{tag} sweep ({smi}): {len(res.snr_points)} points, {frames} "
+            f"frames in {secs:.4f} s = {frames * 288 / secs:.6g} info bits/s, "
+            f"{QC_KERNEL.launches} K3 launches")
+        runs.setdefault(tag, (res, QC_KERNEL.launches))
+    par, par_launches = runs["parallel"]
+    seq, seq_launches = runs["sequential fused=off"]
+    longest = max(p.total_blocks for p in par.snr_points) // BATCH
+    if par_launches != longest or seq_launches <= par_launches:
+        fail(f"the parallel sweep launched K3 {par_launches} times for "
+             f"{longest} batch indices")
+    for a, b in zip(par.snr_points, seq.snr_points):
+        if vars(a) != vars(b):
+            fail(f"parallel point {a.snr_db} != sequential: {vars(a)} "
+                 f"{vars(b)}")
+        r = rec[a.snr_db]
+        gap, bar = five_se(a.failed_blocks, a.total_blocks,
+                           (r["failed_blocks"], r["total_blocks"]))
+        log(f"  {a.snr_db} dB: {a.failed_blocks}/{a.total_blocks} = "
+            f"{a.fer:.6f} (equal to the sequential run) vs TPU "
+            f"{r['failed_blocks']}/{r['total_blocks']} = {r['fer']:.6f}: "
+            f"|diff| {gap:.6f}, 5 se {bar:.6f}")
+        if a.failed_blocks < 100:
+            fail(f"{a.snr_db} dB stopped before its 100 errors")
+        if gap > bar:
+            fail(f"{a.snr_db} dB FER outside 5 combined standard errors")
+
+
+_RANK = r"""
+import json, sys
+import torch
+from ldpc_tpu_torch.ops.mc_kernels import MC_KERNEL
+from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+from ldpc_tpu_torch.parallel.distributed import initialize_distributed, shutdown
+from ldpc_tpu_torch.parallel.mesh import make_mesh
+from ldpc_tpu_torch.sim.config import SimOptions
+from ldpc_tpu_torch.sim.runner import (PointExecutor, load_code,
+                                       run_simulation_parallel)
+
+rank, port, out, kw = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                       json.loads(sys.argv[4]))
+assert initialize_distributed(f"127.0.0.1:{port}", 2, rank)
+mesh = make_mesh({"batch": 2})
+res = {"backend": mesh.backend}
+opts = SimOptions(**kw["point"])
+ex = PointExecutor(load_code(opts.matrix), opts, mesh=mesh)
+MC_KERNEL.launches = 0
+st = ex.run_point(2.0, opts.blocks, 0, 0)
+res["point"] = [ex.kernel_used, st.__dict__, MC_KERNEL.launches]
+QC_KERNEL.launches = 0
+par = run_simulation_parallel(SimOptions(**kw["sweep"]),
+                              mesh=make_mesh({"snr": 2}))
+res["sweep"] = [[vars(p) for p in par.snr_points], QC_KERNEL.launches]
+from ldpc_tpu_torch import cli
+assert cli.main(kw["cli"] + ["--output-json", out + ".json"]) == 0
+res["cli"] = json.load(open(out + ".json"))["snr_points"]
+json.dump(res, open(out, "w"))
+shutdown()
+"""
+
+
+def phase_two_ranks(smi: str) -> None:
+    """Phase 13d: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one GPU): the main path's point on a batch mesh (each rank K1
+    on its half with its codeword offset), the parallel sweep on an snr=2
+    mesh, and the CLI under ``--distributed --mesh batch=2``; the counters
+    equal this process's unmeshed runs."""
+    import tempfile
+
+    from ldpc_tpu_torch.parallel.dryrun import free_port, run_ranks
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
+
+    point = dict(matrix=W1152, blocks=8 * BATCH, iterations=ITERS, ber=True,
+                 fer=True, fidelity="exact", batch=BATCH, seed=0, speed=0.5,
+                 schedule="layered", layer_order="paired",
+                 check_every=CHECK_EVERY, quiet=True)
+    sweep = dict(FLOOR, blocks=4 * BATCH, initial_snr=2.0, end_snr=2.75,
+                 step_snr=0.25, seed=3)
+    cli = ["--matrix", W1152, "--blocks", str(4 * BATCH), "--batch",
+           str(BATCH), "--iterations", "12", "--ber", "--fer", "--fidelity",
+           "exact", "--speed", "0.5", "--schedule", "layered",
+           "--initial-snr", "1.5", "--end-snr", "2.0", "--step-snr", "0.5",
+           "--quiet"]
+    kw = {"point": point, "sweep": sweep,
+          "cli": cli + ["--distributed", "--mesh", "batch=2"]}
+    port = free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"rank{r}.json") for r in range(2)]
+        run_ranks(lambda r: [sys.executable, "-c", _RANK, str(r), str(port),
+                             outs[r], json.dumps(kw)], 2, RANK_TIMEOUT_S)
+        a, b = (json.loads(Path(o).read_text()) for o in outs)
+        secs = time.perf_counter() - t0
+        if a != b:
+            fail("the two ranks disagree")
+        one = PointExecutor(load_code(W1152), SimOptions(**point))
+        st = one.run_point(2.0, point["blocks"], 0, 0)
+        seq = run_simulation(SimOptions(**sweep, fused="off"))
+        one_cli, _ = run_cli(cli)
+    kernel, stats, k1 = a["point"]
+    log(f"two ranks on one card ({smi}; backend {a['backend']}, "
+        f"{secs:.1f} s with start-up): batch mesh point {kernel}, K1 "
+        f"launches per rank {k1}, counters {stats}")
+    if a["backend"] != "gloo":
+        fail(f"two ranks on one card took backend {a['backend']}")
+    if stats != st.__dict__:
+        fail(f"the batch-mesh point differs from one process: {st.__dict__}")
+    if k1 < 1:
+        fail("the batch-mesh point did not launch K1")
+    pts, k3 = a["sweep"]
+    log(f"  snr=2 mesh sweep: {[(p['snr_db'], p['total_blocks'], p['failed_blocks']) for p in pts]}, "
+        f"K3 launches per rank {k3}")
+    if pts != [vars(p) for p in seq.snr_points]:
+        fail("the snr-mesh sweep differs from the one-process fused=off run")
+    if k3 < 1:
+        fail("the snr-mesh sweep did not launch K3")
+    keys = ("snr_db", "total_blocks", "successful_blocks", "ber", "fer")
+    got = [[p[k] for k in keys] for p in a["cli"]]
+    want = [[p[k] for k in keys] for p in one_cli["snr_points"]]
+    log(f"  CLI --distributed --mesh batch=2: {got}")
+    if got != want:
+        fail(f"the CLI over two ranks differs from one process: {want}")
+
+
+def phase_failure_profile(smi: str) -> None:
+    """Phase 13e: the CLI's ``--failure-profile`` at 3.5 dB (the sweep
+    stops at 100 frame errors, the profile at 100 detected failures)
+    against ``failure_profile.json``'s 303 / 17,793,024, within 5 combined
+    standard errors; then a census of 128 failure patterns at the census
+    record's SNR."""
+    import tempfile
+
+    import numpy as np
+
+    from ldpc_tpu_torch.analysis.failures import (
+        collect_failure_patterns,
+        trapping_census,
+    )
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    rec = json.loads(PROFILE_REC.read_text())["3.5"]
+    ref = (rec["detected"]["count"], rec["frames"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "fp.json"
+        t0 = time.perf_counter()
+        d, _ = run_cli(["--matrix", FLOOR["matrix"], "--blocks",
+                        str(4096 * BATCH), "--batch", str(BATCH),
+                        "--iterations", "12", "--schedule", "layered",
+                        "--fidelity", "exact", "--exact-ber", "--speed", "0.5",
+                        "--ber", "--fer", "--initial-snr", "3.5",
+                        "--end-snr", "3.5", "--target-errors", "100",
+                        "--failure-profile", str(path)])
+        secs = time.perf_counter() - t0
+        prof = json.loads(path.read_text())["3.5"]
+    det, frames = prof["detected"]["count"], prof["frames"]
+    gap, bar = five_se(det, frames, ref)
+    log(f"--failure-profile 3.5 dB ({smi}; {secs:.2f} s, the sweep's "
+        f"{d['snr_points'][0]['total_blocks']} frames included): {det} "
+        f"detected / {frames} = {det / frames:.4e}, undetected "
+        f"{prof['undetected']['count']}, median weight "
+        f"{prof['detected'].get('median')} vs TPU {ref[0]}/{ref[1]} = "
+        f"{ref[0] / ref[1]:.4e} (median {rec['detected']['median']}): "
+        f"|diff| {gap:.3e}, 5 se {bar:.3e}")
+    if det < 100:
+        fail(f"the failure profile stopped at {det} detected failures")
+    if gap > bar:
+        fail("the detected-failure rate is outside 5 combined standard errors")
+    census_snr = json.loads(CENSUS_REC.read_text())["snr_db"]
+    code = load_code(FLOOR["matrix"])
+    popts = SimOptions(**dict(FLOOR, fused="off", seed=0))
+    t0 = time.perf_counter()
+    pats, seen, frames = collect_failure_patterns(
+        code, popts, census_snr, min_patterns=128, max_blocks=2048 * BATCH,
+        max_patterns=128, say=lambda *a, **k: None)
+    census = trapping_census(pats, code)
+    secs = time.perf_counter() - t0
+    top = list(census["classes"].items())[:5]
+    log(f"census at {census_snr} dB ({smi}; {secs:.2f} s): {len(pats)} "
+        f"patterns of {seen} failures in {frames} frames, top (a,b) classes "
+        f"{top}, {len(census['recurring_supports'])} recurring supports")
+    if len(pats) < 128 or not np.all(pats.sum(axis=1) > 0):
+        fail(f"the census captured {len(pats)} patterns")
+
+
+def phase_importance(smi: str) -> None:
+    """Phase 13f: ``estimate_point`` at 3.5 dB with the record's 6 codeword
+    and 10 trapping supports (192 orbit components) over the record's
+    frames, against its validation FER within 5 combined sigma."""
+    from ldpc_tpu_torch.analysis.importance import estimate_point, orbit_supports
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    rec = json.loads(IS_REC.read_text())
+    val = next(v for v in rec["validation"] if v["snr_db"] == 3.5)
+    code = load_code(FLOOR["matrix"])
+    shifts = orbit_supports(rec["codeword_supports"] + rec["trapping_supports"],
+                            code.qc.Z, code.n, max_components=1024)
+    if shifts.shape[0] != rec["components"]:
+        fail(f"{shifts.shape[0]} mixture components, the record has "
+             f"{rec['components']}")
+    opts = SimOptions(**dict(FLOOR, fused="off", blocks=BATCH, seed=0))
+    QC_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    r = estimate_point(code, opts, 3.5, shifts, frames=val["frames"],
+                       pi0=rec["pi0"], shift=rec["shift"])
+    secs = time.perf_counter() - t0
+    bar = 5 * math.hypot(r.fer_std, val["fer_std"])
+    log(f"importance sampling 3.5 dB ({smi}; {secs:.2f} s, {r.frames} frames, "
+        f"{QC_KERNEL.launches} K3 launches): FER {r.fer:.4e} +- "
+        f"{r.fer_std:.2e} vs TPU {val['fer']:.4e} +- {val['fer_std']:.2e} "
+        f"(|diff| {abs(r.fer - val['fer']):.2e}, 5 combined sigma {bar:.2e}); "
+        f"undetected {r.undetected:.4e} (TPU {val['undetected']:.4e}); "
+        f"E[w] {r.mean_weight:.5f}, max w {r.max_weight:.3f}")
+    if QC_KERNEL.launches < 1:
+        fail("the importance sampler did not run through K3")
+    if r.max_weight > 1.0 / rec["pi0"] + 1e-6 or abs(r.mean_weight - 1) > 0.01:
+        fail("importance weights out of their bounds")
+    if abs(r.fer - val["fer"]) > bar:
+        fail("the IS FER is outside 5 combined sigma of the record")
+
+
+def phase_learned(smi: str) -> None:
+    """Phase 13g: the recorded learned [12] schedule through
+    ``evaluate_alphas`` at 2.5 dB over 40,960 frames against the record
+    within 5 combined sigma; 20 steps of ``train_alphas`` whose loss on a
+    held-out batch falls."""
+    import torch
+
+    from ldpc_tpu_torch.analysis.learned_minsum import (
+        evaluate_alphas,
+        make_unrolled_minsum,
+        multiloss,
+        train_alphas,
+    )
+    from ldpc_tpu_torch.ops.channel import ChannelParams, make_channel_fn
+    from ldpc_tpu_torch.ops.encode import make_encoder, random_info_bits
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    learned = json.loads(LEARNED.read_text())
+    rec = next(e for e in learned["eval"] if e["snr_db"] == 2.5)
+    ref = rec["learned schedule"]
+    code = load_code(FLOOR["matrix"])
+    t0 = time.perf_counter()
+    r = evaluate_alphas(code, learned["alphas"], 2.5, 12, blocks=ref["frames"],
+                        batch=BATCH)
+    secs = time.perf_counter() - t0
+    gap, bar = five_se(round(r["fer"] * r["frames"]), r["frames"],
+                       (round(ref["fer"] * ref["frames"]), ref["frames"]))
+    log(f"evaluate_alphas learned [12] 2.5 dB ({smi}; {secs:.2f} s): FER "
+        f"{r['fer']:.5f} of {r['frames']} vs TPU {ref['fer']:.5f}: |diff| "
+        f"{gap:.5f}, 5 se {bar:.5f}")
+    if r["frames"] != ref["frames"] or gap > bar:
+        fail("the learned schedule's FER is outside 5 combined sigma")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    alphas, losses = train_alphas(code, 2.0, 12, steps=20, batch=128,
+                                  say=lambda *a, **k: None)
+    secs = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(99)
+    u = random_info_bits(gen, 1024, code.k)
+    w = make_encoder(code.standard_encode_spec, "orig", dev)(u)
+    consts = ChannelParams(speed=0.5, snr_db=2.0,
+                           noise_model="exact").consts(dev)
+    llr = make_channel_fn(1, 1, n=code.n)(gen, w, consts)
+    unrolled = make_unrolled_minsum(code.layout("orig"), 12)
+    with torch.no_grad():
+        before = float(multiloss(unrolled(torch.full((12,), 0.75, device=dev),
+                                          llr), w))
+        after = float(multiloss(unrolled(torch.as_tensor(alphas, device=dev),
+                                         llr), w))
+    log(f"train_alphas 20 steps ({smi}; {secs:.2f} s): held-out loss "
+        f"{before:.5f} -> {after:.5f}, alphas {[round(a, 4) for a in alphas.tolist()]}")
+    if not after < before:
+        fail("20 steps of train_alphas did not lower the held-out loss")
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -1708,6 +2208,7 @@ def main(argv=None) -> int:
                           text=True, timeout=60, check=True).stdout
     log(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
+    no_offset = start_no_offset_build()  # K1 without the offset, for 13b
     built = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
@@ -1890,6 +2391,18 @@ def main(argv=None) -> int:
     # ---- 12. the reference-fidelity path and the plain decoders ----
     phase_reference(dev, smi)
 
+    # ---- 13. the parallel sweep, meshes and the analyses ----
+    t13 = time.perf_counter()
+    k3p = phase_k3_points(dev, smi)
+    errs["mc_decoder"] = max(errs["mc_decoder"], phase_k1_offset(
+        dev, smi, code, wT, consts, no_offset))
+    phase_parallel_sweep(smi)
+    phase_two_ranks(smi)
+    phase_failure_profile(smi)
+    phase_importance(smi)
+    phase_learned(smi)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s ({smi})")
+
     if args.fer_batches:
         phase_fer(args.fer_batches)
 
@@ -1907,7 +2420,7 @@ def main(argv=None) -> int:
         {"name": "qc_decoder", "route": "cuda", "source": CSRC + "qc_decoder.cu",
          "replaces": "ldpc_tpu/ops/spa_pallas.py:710",
          "launches": qc_launches,
-         "max_abs_err": max(qc_err, sl["errors"]["qc_decoder"]),
+         "max_abs_err": max(qc_err, sl["errors"]["qc_decoder"], k3p["err"]),
          "ms": qc_times["layered spa-12 serial (16-QAM)"][0],
          "plain_ms": qc_times["layered spa-12 serial (16-QAM)"][1],
          "bound_ms": qc_times["layered spa-12 serial (16-QAM)"][2],

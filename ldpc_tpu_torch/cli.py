@@ -7,9 +7,12 @@ default, plus the simulator's own knobs (--fidelity, --decode-graph,
 options). It runs on the card; ``main(argv, device="cpu")`` runs the plain
 PyTorch versions on the CPU. ``--kernel pallas`` means the hand-written QC
 kernel (K3), ``--kernel xla`` the plain PyTorch decoders; ``--sublane-groups``
-is accepted and has no effect. ``--mesh``, ``--distributed`` and
-``--failure-profile`` exit with an error until meshes and the failure
-profiler are ported (ROADMAP.md).
+is accepted and has no effect. ``--distributed`` joins a ``torch.distributed``
+process group (``ldpc_tpu_torch/parallel/distributed.py`` has the launch
+lines) and ``--mesh`` lays axes over its ranks: with an ``snr`` axis the
+points run in parallel (``run_simulation_parallel``), otherwise the batch is
+sharded (``run_simulation(mesh=...)``); ``--failure-profile`` profiles the
+failing frames after the sweep (``analysis.failures``).
 
 Example:
   python -m ldpc_tpu_torch.cli --matrix builtin:wimax_576_0.5.alist.txt \
@@ -25,16 +28,6 @@ import time
 from datetime import datetime
 
 from ldpc_tpu_torch.sim.config import SimOptions
-
-# flags of the JAX CLI whose modules the port does not have yet
-UNPORTED_FLAGS = {
-    "mesh": "--mesh: device meshes and the parallel sweep are not ported "
-            "yet (ROADMAP.md, queue 1: parallel/)",
-    "distributed": "--distributed: multi-process runs are not ported yet "
-                   "(ROADMAP.md, queue 1: parallel/)",
-    "failure_profile": "--failure-profile: the failure profiler is not "
-                       "ported yet (ROADMAP.md, queue 1: analysis/failures)",
-}
 
 
 def _parse_alpha(s: str):
@@ -228,7 +221,7 @@ Examples:
                              "every SNR point: on-device histograms of "
                              "info-bit error weight, detected failures vs "
                              "undetected errors, written as JSON "
-                             "(not ported yet: exits with an error)")
+                             "(ldpc_tpu_torch.analysis.failures)")
     parser.add_argument("--shorten", type=int, default=0,
                         help="Shorten: fix the last S info bits to zero (known "
                              "at the receiver); effective rate (k-S)/(n-S-P)")
@@ -240,11 +233,14 @@ Examples:
                              "(equalizes estimator precision across points; "
                              "0 = fixed --blocks like the reference)")
     parser.add_argument("--distributed", action="store_true",
-                        help="Multi-process run (not ported yet: exits with "
-                             "an error)")
+                        help="Join a torch.distributed process group "
+                             "(torchrun's or the JAX launch variables) before "
+                             "building the mesh; see "
+                             "ldpc_tpu_torch/parallel/distributed.py")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh axes, e.g. 'batch=8' or 'snr=2,batch=4' "
-                             "(not ported yet: exits with an error)")
+                        help="Rank mesh axes, e.g. 'batch=8' or 'snr=2,batch=4'. "
+                             "With an 'snr' axis, all SNR points run in parallel "
+                             "(one axis may be -1 to absorb remaining ranks)")
     parser.add_argument("--quiet", "-q", action="store_true")
     return parser
 
@@ -307,6 +303,20 @@ def options_from_args(args: argparse.Namespace) -> SimOptions:
     )
 
 
+def _parse_mesh_axes(spec: str) -> dict[str, int]:
+    """'snr=2,batch=-1' -> {'snr': 2, 'batch': -1} (-1 = remaining ranks)."""
+    axes: dict[str, int] = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        try:
+            axes[name.strip()] = int(size)
+        except ValueError:
+            raise SystemExit(
+                f"Error: bad --mesh part {part!r}; expected axis=size"
+            )
+    return axes
+
+
 def main(argv: list[str] | None = None, device=None) -> int:
     """Run the CLI on ``argv``; ``device=None`` means the card (tests pass
     ``device="cpu"``). Returns the exit code."""
@@ -329,10 +339,10 @@ def main(argv: list[str] | None = None, device=None) -> int:
         print("Error: --matrix is required (or use --list-codes)")
         return 1
 
-    for flag, msg in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            print(f"Error: {msg}")
-            return 1
+    if args.distributed:
+        from ldpc_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(device=device)
 
     try:
         from ldpc_tpu_torch.utils.db import resolve_matrix
@@ -400,6 +410,26 @@ def main(argv: list[str] | None = None, device=None) -> int:
             from ldpc_tpu_torch.models.catalog import MatrixCatalog
             from ldpc_tpu_torch.sim.adaptive import AdaptiveController, ThresholdStrategy
 
+            mesh = None
+            if args.mesh:
+                from ldpc_tpu_torch.parallel.mesh import make_mesh
+
+                axes = _parse_mesh_axes(args.mesh)
+                if "snr" in axes:
+                    say("Note: adaptive mode evaluates SNR points sequentially "
+                        "(parameters depend on the previous point); the 'snr' "
+                        "mesh axis is folded into 'batch'")
+                    if any(v == -1 for v in axes.values()):
+                        total = -1  # wildcard folds to "all ranks"
+                    else:
+                        total = 1
+                        for v in axes.values():
+                            total *= v
+                    axes = {"batch": total}
+                mesh = make_mesh(axes)
+                say(f"Adaptive executors shard the codeword batch over mesh "
+                    f"{mesh.shape}")
+
             matrix_dir = opts.matrix_dir
             if matrix_dir is None and os.path.isfile(opts.matrix):
                 matrix_dir = os.path.join(os.path.dirname(os.path.abspath(opts.matrix)), "..")
@@ -409,8 +439,20 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 high_ber_threshold=opts.adaptive_high_ber,
                 low_ber_threshold=opts.adaptive_low_ber,
             )
-            controller = AdaptiveController(strategy, catalog, device=device)
+            controller = AdaptiveController(strategy, catalog, device=device,
+                                            mesh=mesh)
             sim_result = controller.run_adaptive_sweep(opts)
+        elif args.mesh:
+            from ldpc_tpu_torch.parallel.mesh import make_mesh
+            from ldpc_tpu_torch.sim.runner import run_simulation_parallel
+
+            mesh = make_mesh(_parse_mesh_axes(args.mesh))
+            if "snr" in mesh.axis_names:
+                sim_result = run_simulation_parallel(opts, code=code, mesh=mesh,
+                                                     device=device)
+            else:
+                sim_result = run_simulation(opts, code=code, mesh=mesh,
+                                            device=device)
         else:
             sim_result = run_simulation(opts, code=code, device=device)
 
@@ -426,6 +468,27 @@ def main(argv: list[str] | None = None, device=None) -> int:
         if opts.output_csv:
             sim_result.to_csv(opts.output_csv)
             say(f"Results exported to CSV: {opts.output_csv}")
+
+        if args.failure_profile:
+            import json
+            from dataclasses import replace
+
+            from ldpc_tpu_torch.analysis.failures import profile_sweep
+            from ldpc_tpu_torch.sim.runner import snr_steps
+
+            # per-frame stats need the unfused step; undetected errors need
+            # exact accounting (the sweep above is not re-run)
+            popts = replace(opts, fused="off", exact_ber=True, adaptive=False)
+            profiles = profile_sweep(
+                code, popts,
+                snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr),
+                min_failures=max(opts.target_errors, 100),
+                max_blocks=opts.blocks,
+                say=say, device=device,
+            )
+            with open(args.failure_profile, "w") as f:
+                json.dump(profiles, f, indent=1)
+            say(f"Failure profile exported: {args.failure_profile}")
 
         if opts.plot or opts.plot_save:
             from ldpc_tpu_torch.sim.visualization import SimulationPlotter

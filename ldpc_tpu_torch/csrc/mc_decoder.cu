@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, const float* consts,
                   int* err, unsigned char* ok, int* conv, float* norm, int* iters,
                   float* llr_out, float* xbuf, int mode, float amp, int noise_input,
-                  unsigned key0, unsigned key1, int skip) {
+                  unsigned key0, unsigned key1, unsigned cw0, int skip) {
   extern __shared__ __align__(16) float smem[];
   const Smem<Q8> S = block_smem<DMAX, Q8>(P, smem);
   stage_tables(P, tab, S.tables);
@@ -124,15 +124,18 @@ mc_decoder_kernel(Loop P, const int* tab, const float* w, const unsigned* raw, c
           if (has1) j1 = raw[6 * nB + ((size_t)c1 * Z + zz) * B + b];
         }
       } else {
-        // Philox words laid out as ldpc_tpu_torch/ops/mc_kernels.py philox_raw
+        // Philox words laid out as ldpc_tpu_torch/ops/mc_kernels.py philox_raw;
+        // the counter's codeword word is cw0 + b, so a launch over a shard
+        // [cw0, cw0 + B) of a batch draws the words the whole batch draws there
         const uint2 key = make_uint2(key0, key1);
-        const uint4 x = philox4x32_10(make_uint4((unsigned)b, (unsigned)item, 0u, 0u), key);
+        const unsigned cw = cw0 + (unsigned)b;
+        const uint4 x = philox4x32_10(make_uint4(cw, (unsigned)item, 0u, 0u), key);
         a0 = x.x;
         a1 = x.y;
         a2 = x.z;
         j0 = x.w;
         if (mode != 1) {
-          const uint4 y = philox4x32_10(make_uint4((unsigned)b, (unsigned)item, 1u, 0u), key);
+          const uint4 y = philox4x32_10(make_uint4(cw, (unsigned)item, 1u, 0u), key);
           b0 = y.x;
           b1 = y.y;
           b2 = y.z;
@@ -176,7 +179,8 @@ extern "C" int mc_decoder_launch(const float* w, const unsigned* raw, const floa
                                  int track_norm, int k, int flood, int int8,
                                  int dmax, int has_dup, int cpg, int tpg, int Ls, int smem,
                                  int mode, float amp, int noise_input, unsigned key0,
-                                 unsigned key1, int skip, int device, void* stream) {
+                                 unsigned key1, unsigned cw0, int skip, int device,
+                                 void* stream) {
   Loop P = make_loop(tab, n, Z, nb, mb, e_slots, ngroups, R, B, max_it, check_every, variant,
                      alpha, beta, atab, acls, aT, aD, track_norm, k, flood, int8,
                      has_dup, cpg, tpg, Ls);
@@ -186,7 +190,8 @@ extern "C" int mc_decoder_launch(const float* w, const unsigned* raw, const floa
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   void* args[] = {&P,      &tab,  &w,    &raw, &consts,      &err, &ok,  &conv, &norm,
-                  &iters,  &llr_out, &xbuf, &mode, &amp, &noise_input, &key0, &key1, &skip};
+                  &iters,  &llr_out, &xbuf, &mode, &amp, &noise_input, &key0, &key1, &cw0,
+                  &skip};
   return launch(kernel_of<MC>(dmax, flood, track_norm, int8), P, dmax, device, stream, args);
 }
 

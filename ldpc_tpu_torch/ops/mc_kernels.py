@@ -142,18 +142,21 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def philox_raw(key: tuple[int, int], n: int, Z: int, B: int, mode: int,
-               device) -> torch.Tensor:
+               device, b0: int = 0) -> torch.Tensor:
     """The Philox source's words in the injected layout, int64 [draws, n, B].
 
     Column pair p (base columns 2p, 2p+1), row z and lane b draw
-    ``philox(counter=(b, p*Z + z, call, 0), key)``. Call 0 gives planes
+    ``philox(counter=(b0 + b, p*Z + z, call, 0), key)``: lanes
+    ``[b0, b0 + B)`` of a batch, so a shard of a batch draws what the whole
+    batch draws there. Call 0 gives planes
     0-2 of column 2p (and, in mode 2, the jam word of column 2p); call 1
     (modes 2/3) planes 3-5 of column 2p and the jam word of column 2p+1.
     The kernel draws the same words in place."""
     nb = n // Z
     P = (nb + 1) // 2
     k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
-    b = torch.arange(B, dtype=torch.int64, device=device).view(1, 1, B)
+    b = (torch.arange(B, dtype=torch.int64, device=device).view(1, 1, B)
+         + int(b0)) & _M32
     pz = torch.arange(P * Z, dtype=torch.int64, device=device).view(P, Z, 1)
     c0 = b.expand(P, Z, B)
     c1 = pz.expand(P, Z, B)
@@ -234,7 +237,7 @@ MC_KERNEL = Kernel(
      _P, _P, _P, _P, _P, _P,  # err ok conv norm iters llr_out
      _P, _P]  # xbuf prior
     + LOOP_ARGS
-    + [_I, _F, _I, _U, _U, _I,  # mode amp noise_input key0 key1 skip
+    + [_I, _F, _I, _U, _U, _U, _I,  # mode amp noise_input key0 key1 b0 skip
        _I, _P],  # device stream
 )
 LLR_KERNEL = Kernel(
@@ -595,13 +598,15 @@ class _FusedBase(DecodeConfig):
 
 
 class MCDecoder(_FusedBase):
-    """``mc_step(wT, consts, seeds=None, raw=None, skip=0)``.
+    """``mc_step(wT, consts, seeds=None, raw=None, skip=0, b0=0)``.
 
     ``wT``: f32 [n, B] transmitted code bits (0/1), codewords on the minor
     axis. ``consts``: f32 [8] from ``ChannelParams.consts``. Noise comes from
     ``raw`` (uint32 or int32 [draws, n, B] words in the injected layout)
-    when given, else from Philox keyed by ``seeds`` (two 32-bit ints).
-    ``skip`` nonzero pre-marks every lane done.
+    when given, else from Philox keyed by ``seeds`` (two 32-bit ints), with
+    ``b0`` added to each lane's codeword counter (a shard ``[b0, b0 + B)``
+    of a batch draws the whole batch's noise there). ``skip`` nonzero
+    pre-marks every lane done.
 
     Returns ``(err, ok, conv, norm, iters)``: int32 / bool / int32 / f32 /
     int32 [B]; ``err`` counts info-bit mismatches in every frame (callers
@@ -634,14 +639,15 @@ class MCDecoder(_FusedBase):
         self.amp = 1.0 if modulation == 1 else 0.7
         self.emit_llr = emit_llr
 
-    def __call__(self, wT, consts, seeds=None, raw=None, skip=0):
+    def __call__(self, wT, consts, seeds=None, raw=None, skip=0, b0=0):
         if wT.device.type == "cpu":
-            return self.plain(wT, consts, seeds=seeds, raw=raw, skip=skip)
+            return self.plain(wT, consts, seeds=seeds, raw=raw, skip=skip,
+                              b0=b0)
         if wT.device.type != "cuda":
             raise ValueError(f"no kernel for device {wT.device}")
-        return self._launch(wT, consts, seeds, raw, skip)
+        return self._launch(wT, consts, seeds, raw, skip, b0)
 
-    def plain(self, wT, consts, seeds=None, raw=None, skip=0):
+    def plain(self, wT, consts, seeds=None, raw=None, skip=0, b0=0):
         """The kernel's arithmetic in PyTorch, on any device."""
         n, B = wT.shape
         dev = wT.device
@@ -649,7 +655,7 @@ class MCDecoder(_FusedBase):
         if raw is None:
             if seeds is None:
                 raise ValueError("pass raw words or Philox seeds")
-            raw = philox_raw(seeds, n, self.qc.Z, B, self.mode, dev)
+            raw = philox_raw(seeds, n, self.qc.Z, B, self.mode, dev, b0)
         L = -channel_llr_reference(wT, raw, consts, self.mode,
                                    self.modulation, self.qc.Z)
         llr = L.clone() if self.emit_llr else None
@@ -658,7 +664,7 @@ class MCDecoder(_FusedBase):
         out = (self._count_errors(L, wT), done, conv, norm, iters)
         return out + (llr,) if self.emit_llr else out
 
-    def _launch(self, wT, consts, seeds, raw, skip):
+    def _launch(self, wT, consts, seeds, raw, skip, b0):
         dev = wT.device
         n, B = self.qc.n, wT.shape[1]
         self._check("wT", wT, torch.float32, (n, B), dev)
@@ -685,7 +691,7 @@ class MCDecoder(_FusedBase):
                 *(o.data_ptr() for o in outs), self._ptr(llr),
                 self._ptr(xbuf), self._ptr(prior), *args,
                 self.mode, self.amp, int(raw is not None), key[0], key[1],
-                int(bool(skip)), dev.index, stream,
+                int(b0) & _M32, int(bool(skip)), dev.index, stream,
             )
         return outs + (llr,) if self.emit_llr else outs
 

@@ -143,10 +143,12 @@ class AdaptiveController:
     """Orchestrates an adaptive SNR sweep (adaptive.py:127-440 analogue)."""
 
     def __init__(self, strategy: AdaptiveStrategy, catalog: MatrixCatalog,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.strategy = strategy
         self.catalog = catalog
         self.device = device  # None: the card
+        # parallel.mesh.Mesh: the point executors shard the batch over it
+        self.mesh = mesh
         self._executors: dict[tuple, PointExecutor] = {}
 
     def _executor(self, opts: SimOptions, state: AdaptiveState) -> PointExecutor:
@@ -165,6 +167,7 @@ class AdaptiveController:
                 interleaver=state.current_interleaver,
                 modulation=state.current_modulation,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._executors[key]
 

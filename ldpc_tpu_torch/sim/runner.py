@@ -1,8 +1,8 @@
 """SNR sweep and Monte-Carlo point executor of the port.
 
-Counterpart of ``ldpc_tpu/sim/runner.py``: ``PointExecutor`` (``:413-1092``)
-and ``run_simulation`` (``:1095-1402``). Each batch of codewords takes one of
-two pipelines.
+Counterpart of ``ldpc_tpu/sim/runner.py``: ``PointExecutor`` (``:413-1092``),
+``run_simulation`` (``:1095-1402``) and ``run_simulation_parallel``
+(``:1405-1549``). Each batch of codewords takes one of two pipelines.
 
 The fused path (``:521-872``), for a QC code, the exact rule on the original
 graph, an SPA / min-sum decoder, no interleaver, BPSK or the QPSK proxy and
@@ -46,18 +46,29 @@ for every configuration first, with the JAX package's refusals
 ``auto`` drops the split then.
 
 A Python loop over batches takes the place of ``lax.scan``. Counters
-accumulate on the device and the host fetches them once per point (and
-every few batches under ``target_errors``). Every decode op is per codeword,
-so a two-phase split gives the same counters as a single pass, and a point
-run in pieces (``start_batch``) gives the same counters as one run.
+accumulate on the device and the host fetches them once per point; under
+``target_errors`` it checks the quota on the JAX runner's schedule (groups
+of up to 8 batches where its fused path runs, else every batch). Every
+decode op is per codeword, so a two-phase split gives the same counters as
+a single pass, and a point run in pieces (``start_batch``) gives the same
+counters as one run.
+
+Meshes (:mod:`ldpc_tpu_torch.parallel`): on a ``batch`` axis each rank
+decodes its rows of every batch, drawing the whole batch's info bits (and,
+unfused, its interleaver and channel) and, fused, K1's Philox noise from
+its rows' codeword offset, so the summed counters equal an unmeshed run's.
+The parallel sweep runs the points of a batch index as one step
+(:meth:`PointExecutor.sweep_step`: one K3 launch over the live points'
+frames), dealt over an ``snr`` axis.
 
 ``--profile DIR`` wraps the sweep in a ``torch.profiler`` trace written to
-DIR. Still to be ported (ROADMAP.md): meshes and the parallel sweep.
+DIR.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
 import time
@@ -87,6 +98,7 @@ from ldpc_tpu_torch.ops.metrics import (
     block_stats,
     pack_counters,
     reduce_block_stats,
+    unpack_counters,
 )
 from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
 from ldpc_tpu_torch.ops.spa import make_decoder
@@ -315,6 +327,16 @@ def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
 
 KNOWN_LLR = 60.0  # |LLR| of a known bit; channel convention: 0 -> negative
 
+# the JAX runner's refusal of fused='on' (runner.py:577-585), word for word
+FUSED_ON_TEXT = (
+    "fused='on' requires a QC code, check_rule='exact', "
+    "decode_graph='orig', an SPA/min-sum variant, "
+    "no interleaver, modulation 1/2, no "
+    "shorten/puncture, a mesh with a batch axis (or none) "
+    "outside the parallel sweep, and the kernel fitting VMEM "
+    "(--normalized-llr adds a scratch buffer to the VMEM plan)"
+)
+
 
 @dataclass
 class PointStats:
@@ -350,7 +372,9 @@ class PointExecutor:
                  max_iterations: int | None = None,
                  interleaver: str | None = None,
                  modulation: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None, batch_axes: tuple[str, ...] = ("batch",),
+                 step_vmapped: bool = False):
         opts = opts.resolved()
         self.device = resolve_device(device)
         self.code = code
@@ -367,6 +391,20 @@ class PointExecutor:
                 "incomparable"
             )
         self.batch = opts.auto_batch(code.n)
+        # a mesh shards the batch over the axes it has of ``batch_axes``
+        # (an snr-only mesh leaves it whole): the batch rounds up to a
+        # multiple of their ranks, each rank decodes its rows of every
+        # batch and the counters are summed over them (runner.py:447-456)
+        self.mesh = mesh
+        self._batch_axes = () if mesh is None else tuple(
+            a for a in batch_axes if a in mesh.axis_names)
+        shards = mesh.size(self._batch_axes) if self._batch_axes else 1
+        self.batch = -(-self.batch // shards) * shards
+        self.local_batch = self.batch // shards
+        lo = (mesh.index(self._batch_axes) if self._batch_axes else 0) \
+            * self.local_batch
+        self._rows = (lo, lo + self.local_batch)
+        self._sharded = shards > 1
         check_decoder_options(opts)
 
         spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
@@ -407,6 +445,9 @@ class PointExecutor:
                 ("modulation 1 or 2", self.modulation not in (1, 2)),
                 ("channel mode 1-3", opts.mode not in (1, 2, 3)),
                 ("no shorten/puncture", bool(S or P)),
+                ("a mesh with a batch axis (or none) outside the parallel "
+                 "sweep", mesh is not None and (not self._batch_axes
+                                                 or step_vmapped)),
             ) if bad
         ]
         # the split, resolved for every configuration (runner.py:541-559)
@@ -425,8 +466,8 @@ class PointExecutor:
                 )
             phase1 = 0
         if opts.fused == "on" and fused_missing:
-            raise ValueError(
-                "fused='on' requires " + ", ".join(fused_missing))
+            raise ValueError(FUSED_ON_TEXT
+                             + f" (missing: {', '.join(fused_missing)})")
         self.fused = not fused_missing
         self.phase1 = phase1 if self.fused else 0
         self._auto = False
@@ -508,13 +549,13 @@ class PointExecutor:
         k = _mix(key ^ 2)
         return gen, (k & 0xFFFFFFFF, k >> 32)
 
-    def _decode(self, wT, consts, seeds, raw, p1: int):
-        """Per-codeword (err, ok, conv, norm, iters) of one batch at phase-1
-        split ``p1`` (0 = single pass)."""
+    def _decode(self, wT, consts, seeds, raw, p1: int, b0: int = 0):
+        """Per-codeword (err, ok, conv, norm, iters) of one batch's rows
+        from ``b0`` at phase-1 split ``p1`` (0 = single pass)."""
         if not p1:
-            return self._mc_full(wT, consts, seeds=seeds, raw=raw)
+            return self._mc_full(wT, consts, seeds=seeds, raw=raw, b0=b0)
         err1, ok1, conv1, norm1, it1, llrT = self._mc1(wT, consts, seeds=seeds,
-                                                       raw=raw)
+                                                       raw=raw, b0=b0)
         # compact unconverged frames to the front lanes: keys 0 before 1
         order = torch.argsort(ok1.to(torch.int32), stable=True)
         llr_s = llrT.index_select(1, order)
@@ -555,8 +596,12 @@ class PointExecutor:
         gen, seeds = self._words(key)
         if u is None:
             u = random_info_bits(gen, self.batch, self.code.k)
-        wT = self._encode_T(u)
-        err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw, p1)
+        lo, hi = self._rows
+        if raw is not None and self._sharded:
+            raw = raw[:, :, lo:hi].contiguous()
+        wT = self._encode_T(u[lo:hi])
+        err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw, p1,
+                                                  lo)
         if not self.opts.exact_ber:
             # reference: bits counted only when decode failed (main.py:134)
             err = torch.where(ok, 0, err).to(torch.int32)
@@ -566,6 +611,33 @@ class PointExecutor:
     def _unfused_step(self, key: int, consts: torch.Tensor, *,
                       u: torch.Tensor | None = None,
                       llr: torch.Tensor | None = None):
+        u, _, llr = self._draw(key, consts, u=u, llr=llr)
+        res = self._decoder(llr)
+        return self._stats(u, res), res.iters_run
+
+    def pattern_step(self, key: int, consts: torch.Tensor):
+        """One unfused batch with its residual error vectors: ``(stats,
+        iters, resid)``, ``resid`` uint8 [B, n] = est XOR the sent codeword
+        (``runner.py:933-939``). The codeword is valid, so H @ resid = H @
+        est: a detected failure's support is a trapping-set candidate."""
+        if self.fused:
+            raise ValueError(
+                "pattern capture needs the unfused pipeline: build the "
+                "PointExecutor with fused='off'"
+            )
+        u, w, llr = self._draw(key, consts)
+        res = self._decoder(llr)
+        return self._stats(u, res), res.iters_run, res.est ^ w.to(res.est.dtype)
+
+    def _stats(self, u: torch.Tensor, res) -> BlockStats:
+        return block_stats(u[:, :self.k_active], res, self._info_pos,
+                           exact=self.opts.exact_ber)
+
+    def _draw(self, key: int, consts: torch.Tensor, *,
+              u: torch.Tensor | None = None, llr: torch.Tensor | None = None):
+        """(info bits, codewords, decoder input LLRs) of this rank's rows
+        of one unfused batch. The whole batch is drawn on every rank, so a
+        shard decodes the frames a single process decodes there."""
         if u is None:
             u = random_info_bits(self._generator(derive_key(key, 0)),
                                  self.batch, self.code.k)
@@ -583,15 +655,57 @@ class PointExecutor:
             llr = llr * self._llr_punct
         if self._S:  # shortened info bits are known zeros
             llr = llr * self._llr_keep - self._llr_known
-        res = self._decoder(llr.contiguous())
-        stats = block_stats(u[:, :self.k_active], res, self._info_pos,
-                            exact=self.opts.exact_ber)
-        return stats, res.iters_run
+        lo, hi = self._rows
+        return u[lo:hi], w[lo:hi], llr[lo:hi].contiguous()
+
+    def sweep_step(self, keys, consts, skips):
+        """Several SNR points as one step (the unfused path; the parallel
+        sweep's counterpart of ``jax.vmap(self._step)``): point ``i`` draws
+        batch key ``keys[i]`` at ``consts[i]`` unless ``skips[i]``.
+
+        Returns ``(BlockStats[S, B_local], iters[S])``. The QC decoder takes
+        the active points' LLRs in one launch, ``[S_active * B_local, n]``;
+        each point's ``iters`` is the most trips of its rows' blocks. A
+        skipped point is left out of the launch: its iters are 0 and its
+        stats placeholders (ok, no errors) the caller discards. The other
+        decoders take one point at a time."""
+        if self.fused:
+            raise ValueError("sweep_step runs the unfused path (a step "
+                             "built with step_vmapped=True)")
+        Bl, dev = self.local_batch, self.device
+        active = [i for i, s in enumerate(skips) if not s]
+        draws = [self._draw(keys[i], consts[i]) for i in active]
+        results = {}
+        if isinstance(self._decoder, QCDecoder) and active:
+            outs = self._decoder.outputs(torch.cat([d[2] for d in draws]))
+            for j, i in enumerate(active):
+                rows = [x[j * Bl:(j + 1) * Bl] for x in outs]
+                results[i] = QCDecoder._result(*rows)
+        else:
+            for (_, _, llr), i in zip(draws, active):
+                results[i] = self._decoder(llr)
+        stats, iters = [], []
+        for i in range(len(keys)):
+            if i in results:
+                u = draws[active.index(i)][0]
+                stats.append(self._stats(u, results[i]))
+                iters.append(results[i].iters_run.to(torch.int32).reshape(()))
+            else:
+                stats.append(BlockStats(
+                    error_bits=torch.zeros(Bl, dtype=torch.int32, device=dev),
+                    ok=torch.ones(Bl, dtype=torch.bool, device=dev),
+                    conv_iter=torch.full((Bl,), -1, dtype=torch.int32,
+                                         device=dev),
+                    norm_llr=torch.zeros(Bl, dtype=torch.float32, device=dev)))
+                iters.append(torch.zeros((), dtype=torch.int32, device=dev))
+        return (BlockStats(*(torch.stack(x) for x in zip(*stats))),
+                torch.stack(iters))
 
     def packed(self, stats: BlockStats, iters: torch.Tensor,
                take: int) -> torch.Tensor:
-        """int32[8] counters of the first ``take`` codewords of a batch."""
-        valid = torch.arange(self.batch, device=self.device) < take
+        """int32[8] counters of this rank's rows among the first ``take``
+        codewords of a batch."""
+        valid = torch.arange(*self._rows, device=self.device) < take
         return pack_counters(reduce_block_stats(stats, valid), iters.max())
 
     # ----------------------------------------------------------- two-phase --
@@ -604,7 +718,7 @@ class PointExecutor:
         One discarded single-pass batch runs first, so that one-time costs
         (library handles, kernel loading) fall neither here nor on the
         probe that prices a block trip."""
-        n, B = self.code.n, self.batch
+        n, B = self.code.n, self.local_batch
         dev = self.device
         self.step(derive_key(self.opts.seed, 1 << 40), self.consts(0.0), 0)
         wT = torch.zeros((n, B), dtype=torch.float32, device=dev)
@@ -707,10 +821,24 @@ class PointExecutor:
 
         def flush():
             v = acc.tolist()  # the one host fetch
+            if self._sharded:
+                # the batch's counters, summed over its shards; the trips
+                # stay this rank's own
+                tot = self.mesh.all_reduce(acc, self._batch_axes).tolist()
+                v = tot[:6] + v[6:7] + tot[7:]
             acc.zero_()
             stats.add(BlockCounters(*(int(x) for x in v[:4]), float(v[7]),
                                     int(v[4]), int(v[5])))
             self.total_iters_run += int(v[6])
+
+        def batches(count: int) -> None:
+            nonlocal remaining, batch_idx
+            for _ in range(count):
+                take = min(remaining, B)
+                s, it = self.step(derive_key(key_point, batch_idx), consts, p1)
+                add(self.packed(s, it, take))
+                remaining -= take
+                batch_idx += 1
 
         p1 = self.phase1
         if self._auto and remaining > 0:
@@ -725,21 +853,24 @@ class PointExecutor:
             self.kernel_used = self._kernel_base + (
                 f"+2phase(auto:{self.phase1})" if use2 else "+2phase(auto:off)")
             p1 = self.phase1 if use2 else 0
-        since_flush = 0
-        while remaining > 0:
-            take = min(remaining, B)
-            s, it = self.step(derive_key(key_point, batch_idx), consts, p1)
-            add(self.packed(s, it, take))
-            remaining -= take
-            batch_idx += 1
-            since_flush += 1
-            if target and since_flush >= 8:
-                # sequential MC early stop needs the frame-error count
-                flush()
-                since_flush = 0
-                if stats.fer_frames >= target:
-                    break
+        if not target:
+            batches(-(-remaining // B))
+            flush()
+            return stats
+        # the sequential MC early stop, on the JAX runner's schedule
+        # (runner.py:1047-1091): where its fused path runs (the card, or
+        # fused='on'), the quota is checked after groups of up to 8 batches,
+        # a power of two, while two batches remain; then, and on the
+        # unfused path, after every batch
         flush()
+        if self.fused and (self.device.type == "cuda" or self.opts.fused == "on"):
+            while remaining >= 2 * B and stats.fer_frames < target:
+                group = min(remaining // B, 8)
+                batches(1 << (group.bit_length() - 1))
+                flush()
+        while remaining > 0 and stats.fer_frames < target:
+            batches(1)
+            flush()
         return stats
 
 
@@ -906,14 +1037,17 @@ def _profiled_sweep(profile_dir: str | None, device: torch.device):
 def run_simulation(
     opts: SimOptions,
     code: LDPCCode | None = None,
+    mesh=None,
     device: str | torch.device | None = None,
 ) -> SimulationResult:
     """Full SNR sweep; returns a SimulationResult (``runner.py:1323-1402``).
 
     Point ``i`` draws from ``derive_key(opts.seed, i)``, so a sweep resumed
     from its checkpoint equals one that ran through. The results go to
-    ``opts.output_json`` / ``opts.output_csv`` when set. ``device=None``
-    means the card."""
+    ``opts.output_json`` / ``opts.output_csv`` when set. ``mesh``
+    (:func:`ldpc_tpu_torch.parallel.mesh.make_mesh`) shards each batch over
+    its ``batch`` axis; the counters equal an unmeshed run's.
+    ``device=None`` means the card."""
     opts = opts.resolved()
     device = resolve_device(device)
     start_time = time.time()
@@ -938,7 +1072,7 @@ def run_simulation(
             if idx < len(snr_points):
                 continue  # completed before resume
             if executor is None:
-                executor = PointExecutor(code, opts, device=device)
+                executor = PointExecutor(code, opts, device=device, mesh=mesh)
             say(f"\nSNR: {snr:.2f} dB")
             t_point = time.time()
             stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
@@ -992,3 +1126,169 @@ def run_simulation(
     if opts.output_csv:
         result.to_csv(opts.output_csv)
     return result
+
+
+# ---------------------------------------------------------- parallel sweep --
+
+def _parallel_ckpt_save(path: str, fp, batch_idx: int, remaining: int,
+                        stats_list, total_iters: int,
+                        device_batch: int) -> None:
+    """Atomic mid-sweep checkpoint of the parallel sweep (``runner.py:
+    1253-1282``): the raw per-point counters and the stream position, with
+    the resolved batch, which shapes the stream. Every rank writes its own
+    file through a temporary of its own, with the same content."""
+    payload = {
+        "parallel_sweep": 1,
+        "fingerprint": fp,
+        "device_batch": device_batch,
+        "batch_idx": batch_idx,
+        "remaining": remaining,
+        "total_iters_run": total_iters,
+        "counters": [
+            [s.blocks, s.ok_blocks, s.error_bits, s.fer_frames,
+             s.norm_llr_sum, s.conv_iters_sum, s.conv_count]
+            for s in stats_list
+        ],
+    }
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def _parallel_ckpt_load(path: str, fp, n_points: int, say, device_batch: int):
+    """A parallel-sweep checkpoint as ``(batch_idx, remaining,
+    total_iters_run, stats_list)``; None when absent or foreign."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "r", encoding="utf-8") as f:
+        d = json.load(f)
+    if not d.get("parallel_sweep"):
+        say(f"Checkpoint {path} is not a parallel-sweep checkpoint; "
+            "starting fresh.")
+        return None
+    if (d["fingerprint"] != fp or len(d["counters"]) != n_points
+            or d.get("device_batch") != device_batch):
+        say(f"Checkpoint {path} belongs to a different sweep configuration; "
+            "starting fresh.")
+        return None
+    stats_list = []
+    for row in d["counters"]:
+        s = PointStats()
+        (s.blocks, s.ok_blocks, s.error_bits, s.fer_frames,
+         s.norm_llr_sum, s.conv_iters_sum, s.conv_count) = row
+        stats_list.append(s)
+    say(f"Resuming parallel sweep from {path}: batch {d['batch_idx']}, "
+        f"{d['remaining']} blocks/point remaining")
+    return d["batch_idx"], d["remaining"], d["total_iters_run"], stats_list
+
+
+def run_simulation_parallel(
+    opts: SimOptions,
+    code: LDPCCode | None = None,
+    mesh=None,
+    snr_axis: str = "snr",
+    device: str | torch.device | None = None,
+) -> SimulationResult:
+    """SNR sweep with every point evaluated at once (``runner.py:
+    1405-1549``).
+
+    The points run as one step per batch index (:meth:`PointExecutor.
+    sweep_step`: the QC decoder takes all their frames in one launch), dealt
+    over the mesh's ``snr`` axis when it has one, each point's batch sharded
+    over the other axes. The step is the unfused one (the JAX runner's
+    vmapped step cannot take its fused kernel), so ``fused='on'`` raises.
+    Keys derive as the sequential runner's, ``derive_key(derive_key(seed,
+    point), batch)``, so the result equals ``run_simulation`` with
+    ``fused='off'`` point for point. With ``--target-errors`` each point
+    stops at its own quota: it is skip-masked from then on. The default mesh
+    puts every rank on ``batch``."""
+    from ldpc_tpu_torch.parallel.mesh import make_mesh, sharded_sweep_step
+
+    opts = opts.resolved()
+    device = resolve_device(device)
+    start_time = time.time()
+    if code is None:
+        code = load_code(opts.matrix)
+    if mesh is None:
+        mesh = make_mesh()
+    say = (lambda *a, **kw: None) if opts.quiet else print
+
+    snrs = snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr)
+    S = len(snrs)
+    s_shard = mesh.shape.get(snr_axis, 1)
+    Sp = -(-S // s_shard) * s_shard  # points padded to the snr axis
+    batch_axes = tuple(a for a in mesh.axis_names if a != snr_axis)
+    executor = PointExecutor(code, opts, device=device, mesh=mesh,
+                             batch_axes=batch_axes or ("batch",),
+                             step_vmapped=True)
+    padded = snrs + [snrs[-1]] * (Sp - S)
+    consts = [executor.consts(s) for s in padded]
+    point_keys = [derive_key(opts.seed, i) for i in range(Sp)]
+    sweep = sharded_sweep_step(executor.sweep_step, mesh, snr_axis)
+    B = executor.batch
+    config = make_sim_config(opts, code, device)
+
+    say(f"Evaluating {S} SNR points in parallel on mesh {mesh.shape}...")
+
+    stats_list = [PointStats() for _ in range(Sp)]
+    remaining = opts.blocks
+    batch_idx = 0
+    ckpt_fp = None
+    if opts.checkpoint:
+        # JSON-normalized so a reloaded fingerprint compares equal
+        ckpt_fp = json.loads(json.dumps(sweep_fingerprint(config)))
+        if opts.resume:
+            prior = _parallel_ckpt_load(opts.checkpoint, ckpt_fp, Sp, say, B)
+            if prior is not None:
+                batch_idx, remaining, executor.total_iters_run, stats_list = prior
+
+    def finished_mask() -> np.ndarray:
+        """Points that stop decoding: the padding replicas always, real
+        points once they reach the --target-errors quota (derived from the
+        counters, so a resume recomputes it)."""
+        f = np.zeros(Sp, dtype=bool)
+        f[S:] = True
+        if opts.target_errors:
+            for s in range(S):
+                f[s] = stats_list[s].fer_frames >= opts.target_errors
+        return f
+
+    arange_b = torch.arange(B, device=device)
+    with _profiled_sweep(opts.profile, device):
+        while remaining > 0:
+            finished = finished_mask()
+            if opts.target_errors and finished[:S].all():
+                break
+            take = min(remaining, B)
+            keys = [derive_key(k, batch_idx) for k in point_keys]
+            stats, iters = sweep(keys, consts, finished.tolist())
+            valid = arange_b < take
+            live = np.flatnonzero(~finished).tolist()
+            packed = torch.stack([
+                pack_counters(reduce_block_stats(
+                    BlockStats(*(x[s] for x in stats)), valid), iters[s])
+                for s in live]).cpu().numpy()  # one fetch a batch
+            for s, row in zip(live, packed):
+                counters, _ = unpack_counters(row)
+                stats_list[s].add(counters)
+                executor.total_iters_run += int(row[6])
+            remaining -= take
+            batch_idx += 1
+            if opts.checkpoint:
+                _parallel_ckpt_save(opts.checkpoint, ckpt_fp, batch_idx,
+                                    remaining, stats_list,
+                                    executor.total_iters_run, B)
+
+    snr_points = [
+        build_point_result(snrs[s], stats_list[s], opts, executor.k_active)
+        for s in range(S)
+    ]
+    for p in snr_points:
+        say(f"SNR {p.snr_db:.2f} dB: BER={p.ber:.6f} FER={p.fer:.6f} "
+            f"ok={p.successful_blocks}/{p.total_blocks}")
+    return SimulationResult(
+        config=config,
+        snr_points=snr_points,
+        wall_clock_seconds=time.time() - start_time,
+    )

@@ -113,10 +113,30 @@ def test_unknown_matrix_is_a_clean_error(capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "batch=2"], ["--distributed"],
                                   ["--failure-profile", "f.json"]])
-def test_unported_flags_exit_with_an_error(flag, capsys):
-    assert tcli.main(["--matrix", W576] + flag, device="cpu") == 1
+def test_unported_flags_exit_with_an_error(flag, capsys, tmp_path,
+                                           monkeypatch):
+    """The three flags are ported: each exits with the JAX CLI's error where
+    the JAX CLI errs, and runs where it runs. One process is one rank, so
+    ``--mesh batch=2`` does not cover it; ``--distributed`` with nothing
+    set stays one process; ``--failure-profile`` writes its JSON."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--matrix", W576] + SMALL + flag
+    rc = tcli.main(argv, device="cpu")
     out = capsys.readouterr().out
-    assert out.startswith("Error: ") and "ROADMAP" in out
+    if flag[0] == "--mesh":
+        assert rc == 1
+        assert "Error: Mesh {'batch': 2} does not cover 1 devices" in out
+        with pytest.raises(SystemExit, match="bad --mesh part"):
+            tcli.main(["--matrix", W576, "--mesh", "batch"], device="cpu")
+        with pytest.raises(SystemExit, match="bad --mesh part"):
+            jcli.main(["--matrix", W576, "--mesh", "batch"])
+    elif flag[0] == "--distributed":
+        assert rc == 0
+        assert "--distributed: single-process fallback" in out
+    else:
+        assert rc == 0
+        assert set(json.loads((tmp_path / "f.json").read_text())) == \
+            {"3.0", "3.5"}
 
 
 def test_missing_matrix_and_list_codes(capsys, monkeypatch):

@@ -33,14 +33,18 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 43  # every module of the port was imported
+    assert n_modules >= 52  # every module of the port was imported
     for name in ("ops.qc_kernels", "ops.interleave", "ops.modem",
                  "sim.results", "analysis.__init__", "analysis.roofline",
                  "ops.rate_kernels", "scripts.__init__", "scripts.roofline",
                  "scripts.attainable_ceiling", "ops.spa", "ops.layered",
                  "models.ru", "models.generate", "models.catalog",
                  "analysis.graph_stats", "analysis.exit", "utils.timing",
-                 "sim.visualization", "sim.adaptive", "cli", "plot_cli"):
+                 "sim.visualization", "sim.adaptive", "cli", "plot_cli",
+                 "parallel.__init__", "parallel.distributed", "parallel.mesh",
+                 "parallel.dryrun", "analysis.failures", "analysis.importance",
+                 "analysis.learned_minsum", "analysis.density_evolution",
+                 "utils.legacy_rng"):
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
             name.split(".")[-1] + ".py"))
@@ -69,9 +73,20 @@ def test_entry_points_default_to_the_card():
         measure_rates,
         measure_tile_trips,
     )
+    from ldpc_tpu_torch.analysis.density_evolution import (
+        de_error_probability,
+        regular_protograph,
+    )
+    from ldpc_tpu_torch.analysis.failures import profile_point
+    from ldpc_tpu_torch.analysis.learned_minsum import evaluate_alphas
     from ldpc_tpu_torch.ops.channel import ChannelParams
     from ldpc_tpu_torch.sim.config import SimOptions
-    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
+    from ldpc_tpu_torch.sim.runner import (
+        PointExecutor,
+        load_code,
+        run_simulation,
+        run_simulation_parallel,
+    )
     from ldpc_tpu_torch.utils.device import resolve_device
 
     code = load_code("builtin:wimax_576_0.5.alist.txt")
@@ -95,6 +110,14 @@ def test_entry_points_default_to_the_card():
         measure_mix_rate({"fma": 3.0, "tanh": 1.0})
     with pytest.raises(RuntimeError, match="CUDA"):
         measure_tile_trips(code, opts, 2.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_simulation_parallel(opts, code)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        de_error_probability(regular_protograph(3, 6), 1.0, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_alphas(code, 0.75, 2.0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_point(code, opts, 2.0, 1, 1)
     assert PointExecutor(code, opts, device="cpu").device.type == "cpu"
 
 
