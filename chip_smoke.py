@@ -160,9 +160,12 @@ Phases:
    over 4 points of the bench code in one launch (``sweep_step``): one
    launch, each point equal to its single-point step, a skip mask [1,0,1,0]
    (0 trips), bit-equal to its plain version, its ms against 4 single-point
-   launches. 13b. K1 with the codeword offset: halves at b0 = 0 and B/2
-   bit-equal to the whole launch, and K1 timed beside a build of its source
-   without the offset (the counter as it was before), in turns. 13c.
+   launches, beside its plain version's ms, its bound and its attainable ms
+   (the census of the data's sweeps at the issue peak and at K5's rate).
+   13b. K1 with the codeword offset: halves at b0 = 0 and B/2 bit-equal to
+   the whole launch, and K1 timed beside a build of its source without the
+   offset (the counter as it was before), in turns, with its plain ms,
+   bound and attainable ms. 13c.
    ``run_simulation_parallel`` over wimax 576 at 2.0-2.75 dB, layered
    SPA-12, --exact-ber, --target-errors 100: one K3 launch per batch index,
    counters equal to ``run_simulation(fused='off')``, FER within 5 combined
@@ -177,7 +180,28 @@ Phases:
    sigma). 13g. The learned [12] schedule through ``evaluate_alphas`` at
    2.5 dB over 40,960 frames against ``learned_minsum/results.json`` (5
    sigma), and 20 ``train_alphas`` steps that lower a held-out loss.
-14. One ``kernels`` JSON line, then the device line as the last line.
+14. The repo-level studies (``ldpc_tpu_torch/scripts``) on the card at
+   reduced counts, each with the launch counts zeroed just before it and
+   read just after, into a temporary directory; each FER, rate and witness
+   check within 5 combined standard errors of its TPU record, each output
+   with no randomness equal to the record's: ``error_floor`` (the curve at
+   2.0-2.5 dB to 50 frame errors through K1 against ``curve.json``, the
+   failure profile at 3.0 dB through K3 against the curve's 3.0 dB point,
+   the census classes of the census record's recurring supports);
+   ``undetected_witness`` (wimax 576 at 2.5 dB: nonzero codewords of weight
+   >= 13, the weight-13 ones in the orbit of the importance record's
+   codeword supports, the event rate against 8 / 229,376);
+   ``importance_floor`` (its own capture, the committed census, one
+   validation point at 3.5 dB over the record's frames); the five
+   message-precision variants at 2.0 and 2.5 dB, 4096 frames; the burst
+   study at 5.75 dB, target 100, its adversarial permutation equal to the
+   committed one; ``learned_minsum_study`` (20 steps, 4096 evaluation
+   frames, the fixed-alpha columns); ``parity_fixed_noise`` (5 reps) and
+   ``parity_spread`` (3 reps) against ``parity_runs``; the family
+   validation's ``run_code`` on its ten layered representatives, layered and
+   flooding, through K1; one perf-matrix cell and its ``row_ceiling``. A
+   table of every comparison closes the phase.
+15. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -1682,6 +1706,11 @@ CURVE = ROOT / "examples" / "error_floor" / "curve.json"
 PROFILE_REC = ROOT / "examples" / "error_floor" / "failure_profile.json"
 CENSUS_REC = ROOT / "examples" / "error_floor" / "trapping_census.json"
 IS_REC = ROOT / "examples" / "error_floor" / "importance" / "results.json"
+WITNESS_REC = ROOT / "examples" / "error_floor" / "undetected_codewords.json"
+QUANT_REC = ROOT / "examples" / "quantized_messages" / "RESULTS.md"
+BURST_REC = ROOT / "examples" / "burst_interleaver" / "results.json"
+FAMILY_REC = ROOT / "examples" / "family_tpu" / "RESULTS.md"
+PERF_REC = ROOT / "examples" / "perf_matrix" / "results.json"
 # the error-floor study's decoder: layered SPA-12 serial at wimax 576, exact
 # physics, Eb/N0 per info bit (scripts/error_floor.py)
 FLOOR = dict(matrix="builtin:wimax_576_0.5.alist.txt", iterations=12,
@@ -1731,14 +1760,24 @@ def bind_library(kernel, path):
     return fn, err
 
 
-def phase_k3_points(dev, smi: str) -> dict:
+def phase_k3_points(dev, smi: str, peak: float, rate: float) -> dict:
     """Phase 13a: K3 over S=4 points of the bench code (layered SPA-12
     paired ce2) in one launch of 4 x 4096 frames, through
     ``PointExecutor.sweep_step``: one launch, each point bit-equal to its
     single-point step, a skip mask [1,0,1,0] leaving points out (0 trips),
     the concatenated launch bit-equal to its plain version; then its ms per
-    launch against 4 x the single-point ms."""
+    launch against 4 x the single-point ms, beside its plain version's ms,
+    its bound (the census of the data's sweeps at the issue peak ``peak``,
+    the LLRs in and the decisions out at 3.35 TB/s) and its attainable ms
+    (the census at K5's rate ``rate``)."""
+    import numpy as np
     import torch
+
+    from ldpc_tpu_torch.analysis.roofline import (
+        decode_work,
+        init_census,
+        lane_sweeps,
+    )
 
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
     from ldpc_tpu_torch.sim.config import SimOptions
@@ -1778,24 +1817,45 @@ def phase_k3_points(dev, smi: str) -> dict:
     llrs = [ex._draw(keys[i], consts[i])[2] for i in range(4)]
     cat = torch.cat(llrs)
     dec = ex._decoder
-    _, err = hold_qc(f"qc_decoder 4 points x {BATCH} in one launch "
+    o, err = hold_qc(f"qc_decoder 4 points x {BATCH} in one launch "
                      f"({plan_tag(dec.plan)})", dec, cat)
     ms4 = time_ms(lambda: dec.outputs(cat), reps=10)
     ms1 = [time_ms(lambda x=x: dec.outputs(x), reps=10) for x in llrs]
     ms4b = time_ms(lambda: dec.outputs(cat), reps=10)
-    log(f"timing qc_decoder 4 points ({smi}): one launch of {4 * BATCH} "
+    plain = time_ms(lambda: dec.plain_outputs(cat), reps=2, warm=1)
+    B, n = cat.shape
+    sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), ITERS)
+    ops = (decode_work(dec.qc, dec.variant, dec.schedule, sweeps=sw,
+                       check_every=dec.check_every, track_norm=dec.track_norm)
+           + B * init_census(dec.qc).total())
+    bound, by = bound_ms(ops, 4 * n * B + n * B + 13 * B, peak)
+    trips = [int(o[4][i * BATCH:(i + 1) * BATCH].max()) for i in range(4)]
+    log(f"timing qc_decoder 4 points ({smi}): one launch of {B} "
         f"frames {ms4:.4f} / {ms4b:.4f} ms, the 4 single-point launches "
-        f"{' + '.join(f'{m:.4f}' for m in ms1)} = {sum(ms1):.4f} ms")
+        f"{' + '.join(f'{m:.4f}' for m in ms1)} = {sum(ms1):.4f} ms; plain "
+        f"{plain:.3f} ms, bound {bound:.5f} ms by {by} ({ops:.6g} census "
+        f"ops, {int(np.sum(sw))} lane sweeps, trips by point {trips}), "
+        f"attainable {1e3 * ops / rate:.5f} ms at K5's {rate:.6g} census "
+        f"ops/s")
     out.update(err=err, ms4=min(ms4, ms4b), ms1=sum(ms1))
     return out
 
 
-def phase_k1_offset(dev, smi: str, code, wT, consts, no_offset) -> float:
+def phase_k1_offset(dev, smi: str, code, wT, consts, no_offset,
+                    peak: float, rate: float) -> float:
     """Phase 13b: K1 with the codeword offset: two half launches (b0 = 0,
     B/2) bit-equal to the whole launch, LLRs included, and K1 (SPA-12, the
     main path's single pass) timed beside the build without the offset (the
-    earlier counter), in turns. Returns the largest error."""
+    earlier counter), in turns, with its plain version's ms, its bound and
+    its attainable ms (as phase 13a). Returns the largest error."""
+    import numpy as np
     import torch
+
+    from ldpc_tpu_torch.analysis.roofline import (
+        channel_census,
+        decode_work,
+        lane_sweeps,
+    )
 
     from ldpc_tpu_torch.models.qc import paired_layer_groups
     from ldpc_tpu_torch.ops.mc_kernels import MC_KERNEL, MCDecoder
@@ -1838,9 +1898,18 @@ def phase_k1_offset(dev, smi: str, code, wT, consts, no_offset) -> float:
     finally:
         MC_KERNEL._fns[()] = own
     t_own, t_before = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    o = mc(wT, consts, seeds=key)
+    sw = lane_sweeps(o[1].cpu().numpy(), o[2].cpu().numpy(), ITERS)
+    ops = (decode_work(code.qc, "spa", "layered", sweeps=sw,
+                       check_every=CHECK_EVERY)
+           + BATCH * channel_census(code.qc).total())
+    bound, by = bound_ms(ops, 4 * code.n * BATCH + 32 + 17 * BATCH, peak)
+    plain = time_ms(lambda: mc.plain(wT, consts, seeds=key), reps=2, warm=1)
     log(f"timing mc_decoder 12 it ({smi}): with the offset {t[0]:.4f} / "
         f"{t[3]:.4f} ms, without {t[1]:.4f} / {t[2]:.4f} ms: "
-        f"{100 * (t_own / t_before - 1):+.2f}%")
+        f"{100 * (t_own / t_before - 1):+.2f}%; plain {plain:.3f} ms, bound "
+        f"{bound:.5f} ms by {by} ({ops:.6g} census ops, {int(np.sum(sw))} "
+        f"lane sweeps), attainable {1e3 * ops / rate:.5f} ms")
     return err
 
 
@@ -2154,6 +2223,421 @@ def phase_learned(smi: str) -> None:
         fail("20 steps of train_alphas did not lower the held-out loss")
 
 
+# ------------------------------------------------ the repo-level studies ----
+
+STUDY_ECHO_LINES = 12  # the last lines of a study's own output, echoed
+
+
+def kernel_counts() -> dict:
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+
+    return {"mc_decoder": MC_KERNEL.launches, "llr_decoder": LLR_KERNEL.launches,
+            "qc_decoder": QC_KERNEL.launches}
+
+
+def zero_kernel_counts() -> None:
+    from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
+
+    MC_KERNEL.launches = LLR_KERNEL.launches = QC_KERNEL.launches = 0
+
+
+class Studies:
+    """Phase 14's bookkeeping: each study runs with the launch counts zeroed
+    just before it and read just after, its own output captured (its last
+    lines echoed), and one summary row per comparison against its record."""
+
+    def __init__(self, smi: str):
+        self.smi = smi
+        self.rows: list[tuple[str, str, str, str]] = []
+        self.launches: dict[str, int] = {}
+
+    def run(self, tag: str, call, needs: tuple[str, ...] = (),
+            none_of: tuple[str, ...] = ()):
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = call()
+        except BaseException:
+            log(buf.getvalue())
+            raise
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        for line in buf.getvalue().splitlines()[-STUDY_ECHO_LINES:]:
+            log(f"    | {line}")
+        log(f"  {tag}: {secs:.2f} s, launches {counts}")
+        for name in needs:
+            if counts[name] < 1:
+                fail(f"{tag} never launched {name}")
+        for name in none_of:
+            if counts[name]:
+                fail(f"{tag} launched {name} {counts[name]} times")
+        for name, c in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + c
+        return out
+
+    def fer(self, study: str, what: str, errors: int, frames: int,
+            ref: tuple[int, int]) -> None:
+        """A frame-error rate against its TPU record, within 5 combined
+        standard errors."""
+        gap, bar = five_se(errors, frames, ref)
+        ok = gap <= bar
+        self.rows.append((study, f"{what}: {errors} / {frames} = "
+                          f"{errors / frames:.4e}", f"{ref[0]} / {ref[1]} = "
+                          f"{ref[0] / ref[1]:.4e}",
+                          f"{'within' if ok else 'OUTSIDE'} 5 se "
+                          f"(|diff| {gap:.3e}, 5 se {bar:.3e})"))
+        log(f"  {study} {what}: {errors} / {frames} = {errors / frames:.4e} "
+            f"vs TPU {ref[0]} / {ref[1]} = {ref[0] / ref[1]:.4e}: |diff| "
+            f"{gap:.3e}, 5 se {bar:.3e}")
+        if not ok:
+            fail(f"{study} {what} is outside 5 combined standard errors")
+
+    def equal(self, study: str, what: str, ours, theirs) -> None:
+        """An output with no randomness, equal to the record's."""
+        self.rows.append((study, what, "the record's", "equal"
+                          if ours == theirs else "DIFFERENT"))
+        log(f"  {study} {what}: {'equal' if ours == theirs else 'DIFFERENT'}")
+        if ours != theirs:
+            fail(f"{study}: {what} differs from the record: {ours!r} != "
+                 f"{theirs!r}")
+
+
+def md_table(text: str, first_cell: str) -> dict[str, list[str]]:
+    """The rows of the first markdown table of ``text`` whose header starts
+    with ``| first_cell |``: {first cell: the other cells}."""
+    rows, inside = {}, False
+    for line in text.splitlines():
+        if line.startswith(f"| {first_cell} |"):
+            if inside:
+                break
+            inside = True
+            continue
+        if inside and line.startswith("|"):
+            cells = [c.strip() for c in line.strip("|").split("|")]
+            if not set(cells[0]) <= set("-"):
+                rows[cells[0]] = cells[1:]
+        elif inside and rows:
+            break
+    return rows
+
+
+def study_error_floor(st: Studies, tmp: Path) -> None:
+    """The curve at 2.0-2.5 dB (--target-errors 50, K1) and the failure
+    profile at 3.0 dB (50 detected failures, K3) against ``curve.json``;
+    the census classes of the census record's recurring supports equal
+    its own."""
+    import numpy as np
+
+    from ldpc_tpu_torch.analysis.failures import trapping_census
+    from ldpc_tpu_torch.scripts import error_floor
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    curve_rec = json.loads(CURVE.read_text())
+    ref = {p["snr_db"]: p for p in curve_rec["snr_points"]}
+    out = tmp / "error_floor"
+    st.run("error floor curve", lambda: error_floor.main(
+        ["--snr", "2.0:2.5:0.25", "--target-errors", "50", "--skip-profile",
+         "--out", str(out)]), needs=("mc_decoder",), none_of=("qc_decoder",))
+    curve = json.loads((out / "curve.json").read_text())
+    st.equal("error floor", "curve.json keys", sorted(curve),
+             sorted(curve_rec))
+    for p in curve["snr_points"]:
+        r = ref[p["snr_db"]]
+        st.fer("error floor", f"curve {p['snr_db']} dB", p["failed_blocks"],
+               p["total_blocks"], (r["failed_blocks"], r["total_blocks"]))
+    st.run("error floor profile", lambda: error_floor.main(
+        ["--skip-curve", "--profile-snrs", "3.0", "--profile-errors", "50",
+         "--out", str(out)]), needs=("qc_decoder",), none_of=("mc_decoder",))
+    prof = json.loads((out / "failure_profile.json").read_text())["3.0"]
+    st.equal("error floor", "failure_profile.json keys", sorted(prof),
+             sorted(json.loads(PROFILE_REC.read_text())["3.5"]))
+    r = ref[3.0]
+    fails = prof["detected"]["count"] + prof["undetected"]["count"]
+    st.fer("error floor", "profile 3.0 dB (detected + undetected)", fails,
+           prof["frames"], (r["failed_blocks"], r["total_blocks"]))
+    census_rec = json.loads(CENSUS_REC.read_text())
+    code = load_code(FLOOR["matrix"])
+    pats = []
+    for entry in census_rec["recurring_supports"]:
+        e = np.zeros(code.n, np.uint8)
+        e[entry["support"]] = 1
+        pats += [e] * entry["count"]
+    census = trapping_census(np.stack(pats), code)
+    st.equal("error floor", "census of the record's recurring supports",
+             [(s["support"], s["count"], s["a"])
+              for s in census["recurring_supports"]],
+             [(s["support"], s["count"], s["a"])
+              for s in census_rec["recurring_supports"]])
+    st.equal("error floor", "their (a,b) classes among the record's",
+             set(census["classes"]) <= set(census_rec["classes"]), True)
+
+
+def study_witness(st: Studies, tmp: Path) -> None:
+    """Undetected residuals at wimax 576, 2.5 dB: each a nonzero codeword of
+    weight >= 13, each weight-13 one in the orbit of the importance record's
+    codeword supports; the event rate against the record's 8 / 229,376."""
+    import numpy as np
+
+    from ldpc_tpu_torch.models.qc import qc_orbit_canonical
+    from ldpc_tpu_torch.scripts import undetected_witness
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    rec = json.loads(WITNESS_REC.read_text())
+    path = tmp / "witness" / "undetected_codewords.json"
+    st.run("undetected witness", lambda: undetected_witness.main(
+        ["--code", FLOOR["matrix"], "--snrs", "2.5", "--min-patterns", "2",
+         "--out", str(path)]), needs=("qc_decoder",))
+    out = json.loads(path.read_text())
+    code = load_code(FLOOR["matrix"])
+    events = out["points"][0]["events"]
+    if len(events) < 2:
+        fail(f"the witness study captured {len(events)} events")
+    for e in events:
+        word = np.zeros(code.n, np.uint8)
+        word[e["support"]] = 1
+        if not e["is_codeword"] or code.syndrome_orig(word).any() \
+                or e["weight"] < min(rec["codeword_weights"]):
+            fail(f"witness residual of weight {e['weight']} is not a "
+                 f"codeword of weight >= 13")
+    Z = code.qc.Z
+    known = {qc_orbit_canonical(s, Z) for s in json.loads(
+        IS_REC.read_text())["codeword_supports"] if len(s) == 13}
+    keys13 = {qc_orbit_canonical(e["support"], Z) for e in events
+              if e["weight"] == 13}
+    st.equal("undetected witness", f"weights {sorted(e['weight'] for e in events)}"
+             f" all codewords, the weight-13 orbit keys ({len(keys13)})",
+             keys13 <= known, True)
+    p = out["points"][0]
+    st.fer("undetected witness", "undetected events at 2.5 dB",
+           p["events_seen"], p["frames"], (rec["events"], rec["frames"]))
+
+
+def study_importance(st: Studies, tmp: Path) -> None:
+    """The importance study's capture and one validation point, 3.5 dB, over
+    the record's frames, against ``importance/results.json``."""
+    from ldpc_tpu_torch.scripts import importance_floor
+
+    rec = json.loads(IS_REC.read_text())
+    val = next(v for v in rec["validation"] if v["snr_db"] == 3.5)
+    out = tmp / "importance"
+    st.run("importance floor", lambda: importance_floor.main(
+        ["--census", str(CENSUS_REC), "--validate-snrs", "3.5",
+         "--deep-snrs", "", "--validate-frames", str(val["frames"]),
+         "--out", str(out)]), needs=("qc_decoder",))
+    res = json.loads((out / "results.json").read_text())
+    st.equal("importance floor", "results.json keys", sorted(res), sorted(rec))
+    st.equal("importance floor", "trapping supports from the census",
+             res["trapping_supports"], rec["trapping_supports"])
+    r = res["validation"][0]
+    bar = 5 * math.hypot(r["fer_std"], val["fer_std"])
+    gap = abs(r["fer"] - val["fer"])
+    ok = gap <= bar
+    st.rows.append(("importance floor", f"FER 3.5 dB {r['fer']:.4e} +- "
+                    f"{r['fer_std']:.2e} ({r['frames']} frames, "
+                    f"{res['components']} components)",
+                    f"{val['fer']:.4e} +- {val['fer_std']:.2e}",
+                    f"{'within' if ok else 'OUTSIDE'} 5 sigma (|diff| "
+                    f"{gap:.2e}, 5 sigma {bar:.2e})"))
+    log(f"  importance floor 3.5 dB: FER {r['fer']:.4e} +- {r['fer_std']:.2e}"
+        f" vs TPU {val['fer']:.4e} +- {val['fer_std']:.2e}: |diff| "
+        f"{gap:.2e}, 5 combined sigma {bar:.2e}")
+    if not ok:
+        fail("the importance floor's FER is outside 5 combined sigma")
+
+
+def study_precision(st: Studies, tmp: Path) -> None:
+    """The five message-precision variants at 2.0 and 2.5 dB, 4096 frames
+    each, against ``quantized_messages/RESULTS.md`` (40,000 frames)."""
+    from ldpc_tpu_torch.scripts import quantized_messages_study
+
+    path = tmp / "quantized" / "RESULTS.md"
+    st.run("message precision", lambda: quantized_messages_study.main(
+        ["--blocks", "4096", "--snrs", "2.0,2.5", "--out", str(path)]),
+        none_of=("mc_decoder", "llr_decoder", "qc_decoder"))
+    head = "Eb/N0 (dB)"
+    ours = md_table(path.read_text(), head)
+    ref = md_table(QUANT_REC.read_text(), head)
+    names = list(quantized_messages_study.VARIANTS)
+    for snr in ("2.0", "2.5"):
+        for name, a, b in zip(names, ours[snr], ref[snr]):
+            st.fer("message precision", f"{name} {snr} dB",
+                   round(float(a) * 4096), 4096,
+                   (round(float(b) * 40000), 40000))
+
+
+def study_burst(st: Studies, tmp: Path) -> None:
+    """The burst study at 5.75 dB, target 100, rows none / regular /
+    random / srandom S=2 / adversarial, against ``burst_interleaver/
+    results.json``; the adversarial permutation equal to the committed
+    one."""
+    import numpy as np
+
+    from ldpc_tpu_torch.scripts import burst_interleaver_study
+
+    rec = json.loads(BURST_REC.read_text())
+    out = tmp / "burst"
+    st.run("burst interleaver", lambda: burst_interleaver_study.main(
+        ["--snr", "5.75", "--target-errors", "100", "--s-sweep", "2",
+         "--out", str(out)]), needs=("qc_decoder",))
+    st.equal("burst interleaver", "adversarial_pi.npy",
+             np.load(out / "adversarial_pi.npy").tolist(),
+             np.load(BURST_REC.parent / "adversarial_pi.npy").tolist())
+    res = json.loads((out / "results.json").read_text())
+    for label, row in res["rows"].items():
+        a, b = row["5.75"], rec["rows"][label]["5.75"]
+        st.fer("burst interleaver", f"{label} 5.75 dB", a["errors"],
+               a["blocks"], (b["errors"], b["blocks"]))
+
+
+def study_learned(st: Studies, tmp: Path) -> None:
+    """The learned min-sum study, 20 steps, 4096 evaluation frames; the
+    fixed-alpha columns against ``learned_minsum/results.json``."""
+    from ldpc_tpu_torch.scripts import learned_minsum_study
+
+    rec = json.loads(LEARNED.read_text())
+    out = tmp / "learned"
+    st.run("learned min-sum", lambda: learned_minsum_study.main(
+        ["--steps", "20", "--eval-blocks", "4096", "--out", str(out)]),
+        none_of=("mc_decoder", "llr_decoder", "qc_decoder"))
+    res = json.loads((out / "results.json").read_text())
+    st.equal("learned min-sum", "results.json keys", sorted(res), sorted(rec))
+    for row, ref in zip(res["eval"], rec["eval"]):
+        for name in ("alpha=0.75 (default)", "alpha=0.8125"):
+            a, b = row[name], ref[name]
+            st.fer("learned min-sum", f"{name} {row['snr_db']} dB",
+                   round(a["fer"] * a["frames"]), a["frames"],
+                   (round(b["fer"] * b["frames"]), b["frames"]))
+
+
+def study_parity(st: Studies, tmp: Path) -> None:
+    """The exact-noise replay (5 reps) against ``parity_runs/
+    fixed_noise.json`` and the spread (3 reps) against ``spread.json``."""
+    from ldpc_tpu_torch.scripts import parity_fixed_noise, parity_spread
+
+    path = tmp / "parity" / "fixed_noise.json"
+    st.run("parity fixed noise", lambda: parity_fixed_noise.main(
+        ["--reps", "5", "--out", str(path)]),
+        none_of=("mc_decoder", "llr_decoder", "qc_decoder"))
+    rec = json.loads((ROOT / "parity_runs" / "fixed_noise.json").read_text())
+    for a, b in zip(json.loads(path.read_text()), rec):
+        n_a, n_b = a["blocks"] * a["reps"], b["blocks"] * b["reps"]
+        st.fer("parity fixed noise", f"mode 3 {a['snr_db']} dB",
+               round(a["fer"] * n_a), n_a, (round(b["fer"] * n_b), n_b))
+    path = tmp / "parity" / "spread.json"
+    st.run("parity spread", lambda: parity_spread.main(
+        ["--reps", "3", "--out", str(path)]),
+        none_of=("mc_decoder", "llr_decoder", "qc_decoder"))
+    rec = json.loads((ROOT / "parity_runs" / "spread.json").read_text())
+    res = json.loads(path.read_text())
+    for tag, rows in rec.items():
+        for a, b in zip(res[tag], rows):
+            n_a, n_b = a["n_blocks"] * a["reps"], b["n_blocks"] * b["reps"]
+            st.fer("parity spread", f"{tag} {a['snr_db']} dB mean FER",
+                   round(a["fer_mean"] * n_a), n_a,
+                   (round(b["fer_mean"] * n_b), n_b))
+
+
+def study_family(st: Studies) -> None:
+    """``run_code`` on the ten layered family representatives, layered and
+    flooding, against ``family_tpu/RESULTS.md`` (256 frames each)."""
+    from ldpc_tpu_torch.scripts import family_validation
+
+    text = FAMILY_REC.read_text()
+    ref = {"flooding": md_table(text, "code | n | k"),
+           "layered": md_table(text, "code | n | Z")}
+
+    def run_all():
+        return [family_validation.run_code(name, schedule)
+                for name in family_validation.LAYERED_TARGETS
+                for schedule in ("layered", "flooding")]
+
+    rows = st.run("family validation", run_all, needs=("mc_decoder",),
+                  none_of=("qc_decoder",))
+    for r in rows:
+        cells = ref[r["schedule"]][r["name"]]
+        ok_ref, blocks_ref = (int(v) for v in cells[-3].split("/"))
+        if not r["kernel"].startswith("cuda+fused"):
+            fail(f"{r['name']} {r['schedule']} ran {r['kernel']}")
+        st.fer("family validation", f"{r['name']} {r['schedule']} "
+               f"({r['kernel']}, {r['smem_kb']} KB)", r["blocks"] - r["ok"],
+               r["blocks"], (blocks_ref - ok_ref, blocks_ref))
+
+
+def study_perf_matrix(st: Studies, peak: float) -> None:
+    """One cell of the perf matrix (wimax 576 spa/layered-12 at the record's
+    Eb/N0, 3 windows of 16 batches) and its ``row_ceiling``."""
+    from types import SimpleNamespace
+
+    from ldpc_tpu_torch.scripts import perf_matrix
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    rec = json.loads(PERF_REC.read_text())
+    rrow = rec["rows"][0]
+    name = rrow["code"]
+    code = load_code(f"builtin:{name}")
+    args = SimpleNamespace(batch=BATCH, n_batches=16, n_windows=3)
+
+    def cell():
+        ex = perf_matrix.make_executor(code, *perf_matrix.CONFIGS[0][1:],
+                                       BATCH)
+        row = perf_matrix.measure_cell(ex, code, rrow["snr_db"], args)
+        return row, perf_matrix.row_ceiling(code, ex.opts, rrow["snr_db"],
+                                            ex.kernel_used, peak=peak)
+
+    row, ceil = st.run("perf matrix cell", cell, needs=("mc_decoder",),
+                       none_of=("qc_decoder",))
+    st.equal("perf matrix", "row keys", sorted(
+        {"code", "n", "k", "rate", "snr_db", "config", *row}), sorted(rrow))
+    frames = args.n_windows * args.n_batches * BATCH
+    rframes = rec["n_windows"] * rrow["n_batches"] * rec["batch"]
+    st.fer("perf matrix", f"{name} {perf_matrix.CONFIGS[0][0]} "
+           f"{rrow['snr_db']} dB", round(row["fer"] * frames), frames,
+           (round(rrow["fer"] * rframes), rframes))
+    pct = 100 * row["info_bits_per_s"] / ceil["ceiling_info_bits_per_s"]
+    log(f"  perf matrix cell ({st.smi}): {row['info_bits_per_s']:.6g} info "
+        f"bits/s [{row['info_bits_per_s_mid_lo']:.4g}-"
+        f"{row['info_bits_per_s_mid_hi']:.4g}], kernel {row['kernel']}; "
+        f"ceiling {ceil['ceiling_info_bits_per_s']:.6g} "
+        f"({'two-phase' if ceil['two_phase'] else 'single pass'}, mean "
+        f"block trips {ceil['mean_tile_iters']:.4f}): {pct:.2f}%")
+    if not 0 < pct < 100:
+        fail(f"the perf matrix cell sits at {pct:.2f}% of its ceiling")
+
+
+def phase_studies(smi: str, peak: float) -> dict:
+    """Phase 14: every ported study of ``ldpc_tpu_torch/scripts`` on the
+    card at reduced counts, into a temporary directory; returns the
+    launches of K1 / K2 / K3 over the phase."""
+    import contextlib
+    import tempfile
+
+    st = Studies(smi)
+    # the studies read their committed inputs relative to the checkout
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(ROOT):
+        tmp = Path(tmp)
+        study_error_floor(st, tmp)
+        study_witness(st, tmp)
+        study_importance(st, tmp)
+        study_precision(st, tmp)
+        study_burst(st, tmp)
+        study_learned(st, tmp)
+        study_parity(st, tmp)
+        study_family(st)
+        study_perf_matrix(st, peak)
+    log(f"studies on the card ({smi}): study | the card | the TPU record | "
+        "verdict")
+    for row in st.rows:
+        log("  " + " | ".join(row))
+    return st.launches
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -2393,15 +2877,21 @@ def main(argv=None) -> int:
 
     # ---- 13. the parallel sweep, meshes and the analyses ----
     t13 = time.perf_counter()
-    k3p = phase_k3_points(dev, smi)
+    k3p = phase_k3_points(dev, smi, peak, rate)
     errs["mc_decoder"] = max(errs["mc_decoder"], phase_k1_offset(
-        dev, smi, code, wT, consts, no_offset))
+        dev, smi, code, wT, consts, no_offset, peak, rate))
     phase_parallel_sweep(smi)
     phase_two_ranks(smi)
     phase_failure_profile(smi)
     phase_importance(smi)
     phase_learned(smi)
     log(f"phase 13: {time.perf_counter() - t13:.1f} s ({smi})")
+
+    # ---- 14. the repo-level studies ----
+    t14 = time.perf_counter()
+    study_launches = phase_studies(smi, peak)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s ({smi}), launches "
+        f"{study_launches}")
 
     if args.fer_batches:
         phase_fer(args.fer_batches)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
-directory ``.gitignore`` lists): K1, K2 and K3 are one source each over the
+directory ``.gitignore`` lists; ``utils.cache.enable_compile_cache`` moves
+it through :func:`set_build_dir`): K1, K2 and K3 are one source each over the
 shared decode body ``csrc/decode_group.cuh``. The hash covers the source,
 the headers of ``csrc``, the flags and the library's own ``-D`` defines, so
 an edited source or header builds anew and one source can give several
@@ -31,7 +32,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
+DEFAULT_BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -55,6 +57,14 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
+
+
+def set_build_dir(path) -> Path:
+    """Build and look up the libraries under ``path`` from now on (a library
+    loaded already stays loaded). Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def _spec(lib) -> tuple[str, tuple[str, ...]]:

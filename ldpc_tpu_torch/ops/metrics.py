@@ -1,6 +1,6 @@
 """BER / FER / convergence accounting with the reference's conventions.
 
-Counterpart of ``ldpc_tpu/ops/metrics.py:24-127``:
+Counterpart of ``ldpc_tpu/ops/metrics.py:24-141``:
   * FER counts frames whose decode result != OK.
   * BER counts erroneous info bits only for failed frames unless ``exact``
     (:func:`block_stats` on the unfused path; the runner applies the same
@@ -73,6 +73,16 @@ def reduce_block_stats(stats: BlockStats, valid: torch.Tensor) -> BlockCounters:
         ).to(i32),
         conv_count=msum(converged.to(i32)).to(i32),
     )
+
+
+def count_block_metrics(u: torch.Tensor, result, info_pos: torch.Tensor,
+                        exact: bool = False,
+                        valid: torch.Tensor | None = None) -> BlockCounters:
+    """One-shot convenience (studies, tests): :func:`block_stats` and
+    :func:`reduce_block_stats` together (``metrics.py:130-141``)."""
+    if valid is None:
+        valid = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+    return reduce_block_stats(block_stats(u, result, info_pos, exact), valid)
 
 
 def pack_counters(c: BlockCounters, iters: torch.Tensor) -> torch.Tensor:

@@ -27,13 +27,31 @@ sys.exit(1 if bad else 0)
 """
 
 
+# the repo-level studies of the JAX package's scripts/, ported
+STUDIES = ("error_floor", "undetected_witness", "importance_floor",
+           "is_depth_harvest", "quantized_messages_study",
+           "burst_interleaver_study", "learned_minsum_study",
+           "parity_fixed_noise", "parity_spread", "family_validation",
+           "perf_matrix")
+
+_STUDY_PROBE = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module("ldpc_tpu_torch." + name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ldpc_tpu", "scripts"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
 def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 52  # every module of the port was imported
+    assert n_modules >= 65  # every module of the port was imported
     for name in ("ops.qc_kernels", "ops.interleave", "ops.modem",
                  "sim.results", "analysis.__init__", "analysis.roofline",
                  "ops.rate_kernels", "scripts.__init__", "scripts.roofline",
@@ -44,13 +62,32 @@ def test_port_imports_neither_jax_nor_reference():
                  "parallel.__init__", "parallel.distributed", "parallel.mesh",
                  "parallel.dryrun", "analysis.failures", "analysis.importance",
                  "analysis.learned_minsum", "analysis.density_evolution",
-                 "utils.legacy_rng"):
+                 "utils.legacy_rng", "utils.cache", "scripts.study",
+                 *(f"scripts.{s}" for s in STUDIES)):
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
             name.split(".")[-1] + ".py"))
     for src in ("roofline.cu", "mc_decoder.cu", "llr_decoder.cu",
                 "qc_decoder.cu", "decode_group.cuh"):
         assert os.path.isfile(os.path.join(REPO, "ldpc_tpu_torch", "csrc", src))
+
+
+def test_studies_import_neither_jax_nor_reference_nor_its_scripts():
+    """The ported studies and their shared modules, loaded in a fresh
+    interpreter: none pulls in ``jax``, ``ldpc_tpu`` or the JAX package's
+    ``scripts/``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    names = ["utils.cache", "scripts.study", "ops.metrics",
+             *(f"scripts.{s}" for s in STUDIES)]
+    proc = subprocess.run([sys.executable, "-c", _STUDY_PROBE, *names],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for launcher in ("run_ldpc.sh", "run_ldpc_advanced.sh"):
+        text = open(os.path.join(REPO, "ldpc_tpu_torch", "scripts", launcher),
+                    encoding="utf-8").read()
+        assert "exec python -m ldpc_tpu_torch.cli" in text
+        assert "ldpc_tpu.cli" not in text
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
