@@ -201,7 +201,26 @@ Phases:
    validation's ``run_code`` on its ten layered representatives, layered and
    flooding, through K1; one perf-matrix cell and its ``row_ceiling``. A
    table of every comparison closes the phase.
-15. One ``kernels`` JSON line, then the device line as the last line.
+15. The throughput studies (``ldpc_tpu_torch/scripts``) on the card at
+   reduced counts, the launch counts zeroed just before each and read just
+   after (K1 in every study, K2 in the forced splits, K3 in the S-random
+   chain), into a temporary directory; each frame-error count within 5
+   standard errors of its TPU record (:func:`five_se`): the atlas's
+   ``code_rows`` on the record's first code of each of the 8 families,
+   2,048 frames x 6 points, against ``atlas.csv``; both big-code ALISTs
+   byte-equal to the committed ones, then the big-code study at n=4608
+   (its load timed) with its shared-memory plan, a 16-batch perf window
+   and its curves cut to 65,536 frames a point through K1 and through the
+   S-random chain against ``examples/big_code``; the four MFU levers and
+   the six decoder variants at 16 batches against their records; the
+   two-phase envelope at 0 and 2 dB (FER equal across off / 6 / auto); one
+   paired point (3.5 dB, 3 rounds); ``two_phase_parity.main`` whole (every
+   counter equal, the norm-LLR gate); the small-code binder's ladder at
+   4096 and 65536 frames a batch and its isolation at 64 steps (host and
+   device us a step; it fails where the host did not queue every group of
+   steps before its spin ended). A table of every comparison closes the
+   phase.
+16. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -715,10 +734,13 @@ def phase_qc_compare(dev):
 
 
 def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, float]:
-    """|FER - reference FER| and 5 combined standard errors of the two."""
-    p1, p2 = errors / frames, ref[0] / ref[1]
-    se = math.sqrt(p1 * (1 - p1) / frames + p2 * (1 - p2) / ref[1])
-    return abs(p1 - p2), 5 * se
+    """|FER - reference FER| and 5 combined standard errors of the two: the
+    studies' own comparison (``scripts.study.five_se``, from the pooled
+    FER), so that every phase judges a FER by one statistic."""
+    from ldpc_tpu_torch.scripts.study import five_se as held
+
+    c = held(errors, frames, *ref)
+    return c["gap"], c["five_se"]
 
 
 def phase_unfused(dev):
@@ -2244,9 +2266,10 @@ def zero_kernel_counts() -> None:
 
 
 class Studies:
-    """Phase 14's bookkeeping: each study runs with the launch counts zeroed
-    just before it and read just after, its own output captured (its last
-    lines echoed), and one summary row per comparison against its record."""
+    """The bookkeeping of phases 14 and 15: each study runs with the launch
+    counts zeroed just before it and read just after, its own output
+    captured (its last lines echoed), and one summary row per comparison
+    against its record."""
 
     def __init__(self, smi: str):
         self.smi = smi
@@ -2638,6 +2661,220 @@ def phase_studies(smi: str, peak: float) -> dict:
     return st.launches
 
 
+# ------------------------------------------------ the throughput studies ----
+
+ATLAS_REC = ROOT / "examples" / "family_atlas" / "atlas.csv"
+ATLAS_BLOCKS = 2048  # frames a point of the atlas's reduced run
+STUDY_BATCHES = 16  # batches a window of the levers, variants and envelope
+
+
+def counts(c: dict) -> tuple[int, int, tuple[int, int]]:
+    """A study's comparison (``scripts.study.five_se``) as the arguments of
+    :meth:`Studies.fer`."""
+    return c["errors"], c["frames"], (c["record_errors"], c["record_frames"])
+
+
+def throughput_atlas(st: Studies) -> None:
+    """The atlas's ``code_rows`` on the record's first code of each family,
+    ``ATLAS_BLOCKS`` frames a point, each point against ``atlas.csv``."""
+    import csv
+
+    from ldpc_tpu_torch.scripts import family_atlas
+
+    first = {}
+    with open(ATLAS_REC, newline="") as f:
+        for r in csv.DictReader(f):
+            first.setdefault(r["family"], r["code"])
+    rows = st.run("family atlas", lambda: [
+        r for name in first.values()
+        for r in family_atlas.code_rows(name, ATLAS_BLOCKS, 12)],
+        needs=("mc_decoder",), none_of=("qc_decoder",))
+    held = family_atlas.atlas_vs_record(rows, str(ATLAS_REC))
+    if len(held) != 6 * len(first):
+        fail(f"the atlas compared {len(held)} of {6 * len(first)} points")
+    for c in held:
+        st.fer("family atlas", f"{c['code']} {c['snr_db']} dB", *counts(c))
+
+
+def throughput_big_code(st: Studies, tmp: Path) -> None:
+    """Both generated ALISTs byte-equal to the committed ones; the big-code
+    study at n=4608 with 16-batch windows and curve points cut to 65,536
+    frames, through K1 and through the S-random chain (K3), against
+    ``examples/big_code``. n=9216's full run is a study of its own: its
+    load alone takes longer than this phase's budget."""
+    import hashlib
+
+    from ldpc_tpu_torch.models.generate import wimax_like, write_alist
+    from ldpc_tpu_torch.scripts import big_code_study
+
+    def digest(path):
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+
+    for Z in (192, 384):
+        path = tmp / f"wimax_like_n{24 * Z}_z{Z}.alist.txt"
+        write_alist(wimax_like(Z, seed=5), str(path))
+        st.equal("big code", f"{path.name} (sha256 of its bytes)",
+                 digest(path), digest(ROOT / "examples" / "big_code"
+                                      / path.name))
+    out = tmp / "big_code"
+    rc = st.run("big code", lambda: big_code_study.main(
+        ["--zs", "192", "--n-windows", "1", "--n-batches", str(STUDY_BATCHES),
+         "--max-blocks", "65536", "--out", str(out)]),
+        needs=("mc_decoder", "qc_decoder"))
+    res = json.loads((out / "results.json").read_text())
+    for name, e in res["codes"].items():
+        plan = "; ".join(f"{k} {v['bytes']} B {v['blocks_per_sm']}/SM"
+                         for k, v in e["smem_plan"].items())
+        log(f"  big code {name} ({st.smi}): load {e['load_rref_G_validate_s']:.2f}"
+            f" s; smem {plan}; perf {e['perf']['info_bits_per_s']:.6g} info "
+            f"bits/s ({e['perf']['kernel']}), ceiling "
+            f"{e.get('ceiling_info_bits_per_s', 0):.6g}")
+        if not all(v["fits"] for v in e["smem_plan"].values()):
+            fail(f"{name}: a block does not fit: {e['smem_plan']}")
+        st.fer("big code", f"{name} perf {e['perf']['snr_db']} dB",
+               *counts(e["perf"]["vs_record"]))
+        for il in ("none", "srandom"):
+            for c in e[f"curve_{il}"]["vs_record"]:
+                st.fer("big code", f"{name} {il} {c['snr_db']:.1f} dB",
+                       *counts(c))
+    if rc != 0:
+        fail(f"the big-code study returned {rc}")
+
+
+def throughput_levers(st: Studies, tmp: Path) -> None:
+    """The four levers and the six variants, one window of
+    ``STUDY_BATCHES`` batches each, against their records."""
+    from ldpc_tpu_torch.scripts import mfu_levers, variant_perf
+
+    b = str(STUDY_BATCHES)
+    out = tmp / "levers"
+    rc = st.run("MFU levers", lambda: mfu_levers.main(
+        ["--n-batches", b, "--n-windows", "1", "--winner-batches", b,
+         "--out", str(out)]), needs=("mc_decoder",), none_of=("qc_decoder",))
+    for row in json.loads((out / "results.json").read_text())["rows"]:
+        st.fer("MFU levers", f"{row['lever']} ({row['kernel']})",
+               *counts(row["vs_record"]))
+    if rc != 0:
+        fail(f"the levers returned {rc}")
+    out = tmp / "variants"
+    rc = st.run("decoder variants", lambda: variant_perf.main(
+        ["--n-batches", b, "--n-windows", "1", "--out", str(out)]),
+        needs=("mc_decoder",), none_of=("qc_decoder",))
+    for row in json.loads((out / "results.json").read_text())["rows"]:
+        if "error" in row:
+            fail(f"decoder variant {row['variant']}: {row['error']}")
+        st.fer("decoder variants", f"{row['variant']} {row['iterations']} "
+               f"it a={row['alpha']} b={row['beta']}",
+               *counts(row["vs_record"]))
+    if rc != 0:
+        fail(f"the variants returned {rc}")
+
+
+def throughput_two_phase(st: Studies, tmp: Path) -> None:
+    """The envelope at 0 and 2 dB (FER equal across off / 6 / auto, K2 in
+    the forced split), one paired point of 3 rounds, and the two-phase
+    parity check whole (every counter equal, the norm-LLR gate)."""
+    from ldpc_tpu_torch.scripts import (
+        envelope_paired,
+        two_phase_envelope,
+        two_phase_parity,
+    )
+
+    out = tmp / "envelope"
+    rc = st.run("two-phase envelope", lambda: two_phase_envelope.main(
+        ["--snrs", "0.0,2.0", "--batches", str(STUDY_BATCHES), "--windows",
+         "1", "--out", str(out)]), needs=("mc_decoder", "llr_decoder"),
+        none_of=("qc_decoder",))
+    for p in json.loads((out / "results.json").read_text())["points"]:
+        st.equal("two-phase envelope", f"FER off / 6 / auto at "
+                 f"{p['snr_db']} dB", [p[m]["fer"] for m in
+                                       two_phase_envelope.MODES],
+                 [p["off"]["fer"]] * 3)
+        log(f"  envelope {p['snr_db']} dB ({st.smi}): auto/off "
+            f"{p['auto_vs_off']:.4f}, forced/off {p['forced_vs_off']:.4f}, "
+            f"auto {p['auto']['kernel']}, probe {p['auto_probe']}, implied "
+            f"overhead {p['implied_overhead_trips']:.3f} trips")
+    if rc != 0:
+        fail(f"the envelope returned {rc}")
+    rc = st.run("envelope paired", lambda: envelope_paired.main(
+        ["--snrs", "3.5", "--rounds", "3", "--batches", str(STUDY_BATCHES),
+         "--out", str(out)]), needs=("mc_decoder",), none_of=("qc_decoder",))
+    for snr, p in json.loads((out / "paired.json").read_text())["points"] \
+            .items():
+        log(f"  paired {snr} dB ({st.smi}): t_off / t_auto "
+            f"{p['auto_over_off']:.4f} [{p['mid_lo']:.4f}-{p['mid_hi']:.4f}]"
+            f", auto {p['auto_kernel']}")
+    if rc != 0:
+        fail(f"the paired envelope returned {rc}")
+    path = tmp / "parity" / "two_phase.json"
+    rc = st.run("two-phase parity", lambda: two_phase_parity.main(
+        ["--out", str(path)]), needs=("mc_decoder", "llr_decoder"),
+        none_of=("qc_decoder",))
+    res = json.loads(path.read_text())
+    for c in res["cases"]:
+        st.equal("two-phase parity", f"{c['code']} {c['schedule']} "
+                 f"{c['snr_db']} dB counters off / split / auto",
+                 c["match"], True)
+    st.equal("two-phase parity", "norm-LLR gate",
+             [res["norm_llr_explicit_raises"],
+              res["norm_llr_auto_single_phase"]], [True, True])
+    if rc != 0:
+        fail(f"the two-phase parity check returned {rc}")
+
+
+def throughput_binder(st: Studies, tmp: Path) -> None:
+    """The small-code binder's ladder at 4096 and 65536 frames a batch and
+    its isolation at 64 steps (CCSDS n32, 5.65 dB)."""
+    from ldpc_tpu_torch.scripts import small_code_binder
+
+    out = tmp / "binder"
+    rc = st.run("small-code binder", lambda: small_code_binder.main(
+        ["--batches", "4096,65536", "--rounds", "3", "--out", str(out)]),
+        needs=("mc_decoder",), none_of=("llr_decoder", "qc_decoder"))
+    res = json.loads((out / "binder.json").read_text())
+    for batch, p in res["ladder"].items():
+        log(f"  binder ladder {batch} ({st.smi}): {p['info_bits_per_s']:.6g} "
+            f"info bits/s, {p['per_batch_ms']:.4f} ms a batch ({p['kernel']})")
+    iso = res["isolation"]
+    if not iso.get("queued_before_spin_ended"):
+        fail("the binder's host did not queue every group of steps before "
+             f"its spin ended: the device time is not measured ({iso})")
+    log(f"  binder isolation ({st.smi}): host {iso['host_us_per_step']:.2f} "
+        f"us a step ({iso['step_ops_us_per_batch']:.2f} without K1); "
+        f"device {iso['device_us_per_step']:.2f} us a step "
+        f"({iso['device_us_per_step_no_kernel']:.2f} without K1, K1 "
+        f"{iso['kernel_device_us_per_batch']:.2f}); idle share "
+        f"{100 * iso['device_idle_share']:.2f}%, queued before the spin "
+        "ended")
+    if not 0 < iso["device_us_per_step"] <= iso["host_us_per_step"]:
+        fail(f"the binder's device time a step is not within its host time: "
+             f"{iso}")
+    if rc != 0:
+        fail(f"the binder returned {rc}")
+
+
+def phase_throughput(smi: str) -> dict:
+    """Phase 15: the throughput studies of ``ldpc_tpu_torch/scripts`` on
+    the card at reduced counts, into a temporary directory; returns the
+    launches of K1 / K2 / K3 over the phase."""
+    import contextlib
+    import tempfile
+
+    st = Studies(smi)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(ROOT):
+        tmp = Path(tmp)
+        throughput_atlas(st)
+        throughput_big_code(st, tmp)
+        throughput_levers(st, tmp)
+        throughput_two_phase(st, tmp)
+        throughput_binder(st, tmp)
+    log(f"throughput studies on the card ({smi}): study | the card | the TPU "
+        "record | verdict")
+    for row in st.rows:
+        log("  " + " | ".join(row))
+    return st.launches
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -2892,6 +3129,12 @@ def main(argv=None) -> int:
     study_launches = phase_studies(smi, peak)
     log(f"phase 14: {time.perf_counter() - t14:.1f} s ({smi}), launches "
         f"{study_launches}")
+
+    # ---- 15. the throughput studies ----
+    t15 = time.perf_counter()
+    tp_launches = phase_throughput(smi)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s ({smi}), launches "
+        f"{tp_launches}")
 
     if args.fer_batches:
         phase_fer(args.fer_batches)

@@ -1,8 +1,9 @@
 """Headline benchmark of the port: Monte-Carlo throughput on WiMAX (1152, 576).
 
-Counterpart of the JAX package's ``bench.py`` (``measure_point`` and the
-JSON line, ``bench.py:40-70, 122-227``) on one GPU. It times the production
-streaming path, ``PointExecutor.run_point``: info bits, the encode product,
+Counterpart of the JAX package's ``bench.py`` (``measure_point``,
+``measure_paired`` / ``paired_ratio`` and the JSON line, ``bench.py:40-119,
+122-227``) on one GPU. It times the production streaming path,
+``PointExecutor.run_point``: info bits, the encode product,
 the fused Monte-Carlo kernel, two-phase compaction and the LLR kernel, and
 the counters, at Eb/N0 2 dB (``speed=0.5``, exact noise, the original
 Tanner graph), layered SPA at 12 iterations, paired layers, a syndrome check
@@ -57,6 +58,47 @@ def measure_point(executor, code, snr_db, *, batch, n_batches, n_windows,
     median = window_times[len(window_times) // 2]
     fer = fer_frames / (n_windows * codewords)
     return median, window_times, fer, codewords * code.k / median
+
+
+def measure_paired(configs, *, batch, n_batches, n_rounds=5,
+                   warmup_batches=None, key=0):
+    """Paired A/B window timing: every config's timed windows interleaved
+    within one process (``bench.py:73-105`` of the JAX package).
+
+    ``configs``: list of ``(label, executor, snr_db)``. One untimed
+    ``run_point`` per config first (key ``key + 7000 + i``), then
+    ``n_rounds`` rounds of one timed window per config back to back (key
+    ``key + r * 97 + i``), so a per-round ratio compares windows timed
+    seconds apart: drift of the host's load moves both, and a stall hits one
+    window of one round.
+
+    Returns ``{label: [t_round0, t_round1, ...]}`` in round order (not
+    sorted: the pairing is positional)."""
+    if warmup_batches is None:
+        warmup_batches = n_batches
+    for i, (label, ex, snr) in enumerate(configs):
+        ex.run_point(snr, batch * warmup_batches, key + 7000 + i, 0)
+    times = {label: [] for label, _, _ in configs}
+    for r in range(n_rounds):
+        for i, (label, ex, snr) in enumerate(configs):
+            t0 = time.perf_counter()
+            ex.run_point(snr, batch * n_batches, key + r * 97 + i, r)
+            times[label].append(time.perf_counter() - t0)
+    return times
+
+
+def paired_ratio(times_a, times_b):
+    """Median per-round ratio t_a / t_b with the middle-round spread.
+
+    Returns ``(median, lo, hi)`` over the per-round ratios (one outlier
+    round dropped per side at 4 rounds or more)."""
+    import numpy as np
+
+    r = np.sort(np.asarray(times_a) / np.asarray(times_b))
+    med = float(np.median(r))
+    if len(r) >= 4:
+        return med, float(r[1]), float(r[-2])
+    return med, float(r[0]), float(r[-1])
 
 
 def device_breakdown(executor, snr_db, *, batch, n_batches=16, key=7777):

@@ -379,18 +379,17 @@ def fused_smem_bytes(tables: QCTables, lanes: int, l_stride: int,
     return head + 4 * (table_len(tables, flood) + gather_words(tables))
 
 
-def fused_plan(tables: QCTables, flood: bool = False,
-               int8: bool = False) -> FusedPlan:
-    """The decode kernels' block: one barrier group, one codeword where a
-    step fills a warp (``rows x Z >= 32``: 96 threads at the bench code),
-    else the codewords that share one warp. A block then holds its SM only
-    while its codewords decode, so a converged codeword frees its place for
-    the next block at once (``PERF.md``: the block-plan ladder). A layered
-    step runs its layer group's rows; a flooding step 2 check rows where the
-    code has them (``mb >= 2`` and ``2 x Z`` within the launch bound).
-    ``int8`` sets the E store (:class:`FusedPlan`). Raises,
-    with the bytes, when the block exceeds the launch bound or the shared
-    memory of a block."""
+def block_layout(tables: QCTables, flood: bool = False,
+                 int8: bool = False) -> FusedPlan:
+    """The decode kernels' block (:func:`fused_plan`) before its limits are
+    checked: one barrier group, one codeword where a step fills a warp
+    (``rows x Z >= 32``: 96 threads at the bench code), else the codewords
+    that share one warp. A block then holds its SM only while its codewords
+    decode, so a converged codeword frees its place for the next block at
+    once (``PERF.md``: the block-plan ladder). A layered step runs its layer
+    group's rows; a flooding step 2 check rows where the code has them
+    (``mb >= 2`` and ``2 x Z`` within the launch bound). ``int8`` sets the E
+    store (:class:`FusedPlan`)."""
     qc = tables.qc
     Z = qc.Z
     if flood:
@@ -403,15 +402,30 @@ def fused_plan(tables: QCTables, flood: bool = False,
         lanes *= 2
     threads = 32 if RZ < 32 else -(-RZ // 32) * 32
     stride = qc.n if lanes == 1 else qc.n + (32 // lanes - qc.n) % 32
-    plan = FusedPlan(lanes=lanes, rows=R, row_threads=RZ, threads=threads,
+    return FusedPlan(lanes=lanes, rows=R, row_threads=RZ, threads=threads,
                      l_stride=stride, flood=bool(flood),
                      smem=fused_smem_bytes(tables, lanes, stride, flood, int8),
                      int8=bool(int8))
-    if plan.threads > MAX_THREADS or plan.smem > _SMEM_LIMIT:
+
+
+def plan_fits(plan: FusedPlan) -> bool:
+    """Whether a block is within the launch bound and the shared memory a
+    block may use."""
+    return plan.threads <= MAX_THREADS and plan.smem <= _SMEM_LIMIT
+
+
+def fused_plan(tables: QCTables, flood: bool = False,
+               int8: bool = False) -> FusedPlan:
+    """The decode kernels' block (:func:`block_layout`). Raises, with the
+    bytes, when the block exceeds the launch bound or the shared memory of
+    a block."""
+    plan = block_layout(tables, flood, int8)
+    if not plan_fits(plan):
+        qc = tables.qc
         raise ValueError(
-            f"code n={qc.n}, Z={Z} does not fit one block of the "
+            f"code n={qc.n}, Z={qc.Z} does not fit one block of the "
             f"{'flooding' if flood else 'layered'} decode kernels: "
-            f"{lanes} codeword(s) need {plan.threads} threads (at most "
+            f"{plan.lanes} codeword(s) need {plan.threads} threads (at most "
             f"{MAX_THREADS}) and {plan.smem} bytes of shared memory (at most "
             f"{_SMEM_LIMIT})")
     return plan

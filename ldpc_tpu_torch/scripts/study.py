@@ -1,9 +1,16 @@
-"""What the ported study scripts share: the device they record and their
-comma-separated SNR lists."""
+"""What the ported study scripts share: the device they record, their
+comma-separated SNR lists, their point generators, where their TPU records
+lie and the comparison of a frame-error count with its record."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
+
+EXAMPLES = Path(__file__).resolve().parents[2] / "examples"
+"""The committed records, found from the checkout and not the working
+directory, so that a study started anywhere compares against them."""
 
 
 def device_label(dev: torch.device) -> str:
@@ -28,3 +35,20 @@ def generator(key: int, dev: torch.device) -> torch.Generator:
     gen = torch.Generator(device=dev)
     gen.manual_seed(key >> 1)
     return gen
+
+
+def five_se(errors: int, frames: int, ref_errors: int,
+            ref_frames: int) -> dict:
+    """A frame-error count against its record's: the two FERs' gap, 5
+    combined standard errors of that gap (from the pooled FER, the standard
+    error the two would share if they measured one FER, which stays
+    positive where one count is 0), and whether the gap is within them."""
+    import math
+
+    p1, p2 = errors / frames, ref_errors / ref_frames
+    p = (errors + ref_errors) / (frames + ref_frames)
+    bar = 5 * math.sqrt(p * (1 - p) * (1 / frames + 1 / ref_frames))
+    gap = abs(p1 - p2)
+    return {"errors": errors, "frames": frames, "record_errors": ref_errors,
+            "record_frames": ref_frames, "gap": gap, "five_se": bar,
+            "within": gap <= bar}

@@ -159,6 +159,9 @@ def test_fused_plan_limits(monkeypatch):
     monkeypatch.setattr(mk, "_SMEM_LIMIT", need - 1)
     with pytest.raises(ValueError, match=rf"768 threads .* {need} bytes"):
         mk.fused_plan(t, flood=True)
+    # the block past the limits, as the big-code study's plan reports it
+    over = mk.block_layout(t, flood=True)
+    assert over.smem == need and not mk.plan_fits(over)
     # the entry points take the plan as it is: cpg, tpg, Ls, smem
     p = mk.fused_plan(_tables(W1152, True))
     assert p.launch_args() == [1, 96, 1152, p.smem]

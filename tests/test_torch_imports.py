@@ -32,14 +32,17 @@ STUDIES = ("error_floor", "undetected_witness", "importance_floor",
            "is_depth_harvest", "quantized_messages_study",
            "burst_interleaver_study", "learned_minsum_study",
            "parity_fixed_noise", "parity_spread", "family_validation",
-           "perf_matrix")
+           "perf_matrix", "family_atlas", "big_code_study", "mfu_levers",
+           "variant_perf", "two_phase_envelope", "envelope_paired",
+           "two_phase_parity", "small_code_binder")
 
 _STUDY_PROBE = """
 import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module("ldpc_tpu_torch." + name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "ldpc_tpu", "scripts"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ldpc_tpu", "scripts",
+                                    "bench", "__graft_entry__"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -74,10 +77,10 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_studies_import_neither_jax_nor_reference_nor_its_scripts():
     """The ported studies and their shared modules, loaded in a fresh
-    interpreter: none pulls in ``jax``, ``ldpc_tpu`` or the JAX package's
-    ``scripts/``."""
+    interpreter: none pulls in ``jax``, ``ldpc_tpu``, the JAX package's
+    ``scripts/``, the root ``bench.py`` or ``__graft_entry__``."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    names = ["utils.cache", "scripts.study", "ops.metrics",
+    names = ["utils.cache", "scripts.study", "ops.metrics", "bench",
              *(f"scripts.{s}" for s in STUDIES)]
     proc = subprocess.run([sys.executable, "-c", _STUDY_PROBE, *names],
                           cwd=REPO, env=env, capture_output=True, text=True,

@@ -18,17 +18,25 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.scripts import (
+    big_code_study,
     burst_interleaver_study,
+    envelope_paired,
     error_floor,
+    family_atlas,
     family_validation,
     importance_floor,
     is_depth_harvest,
     learned_minsum_study,
+    mfu_levers,
     parity_fixed_noise,
     parity_spread,
     perf_matrix,
     quantized_messages_study,
+    small_code_binder,
+    two_phase_envelope,
+    two_phase_parity,
     undetected_witness,
+    variant_perf,
 )
 from ldpc_tpu_torch.sim.runner import load_code
 
@@ -293,6 +301,14 @@ MAINS = {
     "parity_spread": (parity_spread, []),
     "family_validation": (family_validation, []),
     "perf_matrix": (perf_matrix, []),
+    "family_atlas": (family_atlas, []),
+    "big_code_study": (big_code_study, []),
+    "mfu_levers": (mfu_levers, []),
+    "variant_perf": (variant_perf, []),
+    "two_phase_envelope": (two_phase_envelope, []),
+    "envelope_paired": (envelope_paired, []),
+    "two_phase_parity": (two_phase_parity, []),
+    "small_code_binder": (small_code_binder, []),
 }
 
 
