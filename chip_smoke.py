@@ -220,7 +220,24 @@ Phases:
    device us a step; it fails where the host did not queue every group of
    steps before its spin ended). A table of every comparison closes the
    phase.
-16. One ``kernels`` JSON line, then the device line as the last line.
+16. The JAX repo's last entry points and its CLI-made records, the launch
+   counts zeroed just before each step and read just after: 16a.
+   ``ldpc_tpu_torch.entry.entry()`` on the card against the same decoder on
+   the CPU (the plain flooding SPA-10 decoder, no kernel of K1-K3), on its
+   own N(0, 1) LLRs and on 256 all-zero-codeword frames at 2.5 dB from a
+   seeded ``torch.Generator`` (both outcomes occur): ``ok`` and
+   ``conv_iter`` equal on every frame, ``est`` on >= 99% of frames. 16b.
+   ``scripts.exit_charts.main``: both GA thresholds equal to
+   ``examples/exit_charts/exit_thresholds.json``. 16c. The rate-1/2 DE
+   threshold (``scripts.cli_records.de_rate``, seeds 0-2) within [min -
+   0.08, max + 0.08] dB of the waterfall README's 0.84 dB. 16d.
+   ``cli_records.hold_record`` on ``rate_0.5.json`` (five points, layered
+   SPA-16) and the four decoder-variant records at 1.5-2.5 dB (flooding,
+   16 iterations), ``--target-errors 50``, at most 65,536 frames a point,
+   through the port's CLI: K1 launched and K3 never in each, each point
+   within 5 combined standard errors of its record. 16e. A table of every
+   comparison closes the phase.
+17. One ``kernels`` JSON line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -2322,9 +2339,11 @@ class Studies:
         if not ok:
             fail(f"{study} {what} is outside 5 combined standard errors")
 
-    def equal(self, study: str, what: str, ours, theirs) -> None:
-        """An output with no randomness, equal to the record's."""
-        self.rows.append((study, what, "the record's", "equal"
+    def equal(self, study: str, what: str, ours, theirs,
+              against: str = "the record's") -> None:
+        """An output with no randomness, equal to the record's (or to
+        ``against``)."""
+        self.rows.append((study, what, against, "equal"
                           if ours == theirs else "DIFFERENT"))
         log(f"  {study} {what}: {'equal' if ours == theirs else 'DIFFERENT'}")
         if ours != theirs:
@@ -2335,20 +2354,9 @@ class Studies:
 def md_table(text: str, first_cell: str) -> dict[str, list[str]]:
     """The rows of the first markdown table of ``text`` whose header starts
     with ``| first_cell |``: {first cell: the other cells}."""
-    rows, inside = {}, False
-    for line in text.splitlines():
-        if line.startswith(f"| {first_cell} |"):
-            if inside:
-                break
-            inside = True
-            continue
-        if inside and line.startswith("|"):
-            cells = [c.strip() for c in line.strip("|").split("|")]
-            if not set(cells[0]) <= set("-"):
-                rows[cells[0]] = cells[1:]
-        elif inside and rows:
-            break
-    return rows
+    from ldpc_tpu_torch.scripts.study import md_rows
+
+    return {c[0]: c[1:] for c in md_rows(text, f"| {first_cell} |")}
 
 
 def study_error_floor(st: Studies, tmp: Path) -> None:
@@ -2875,6 +2883,119 @@ def phase_throughput(smi: str) -> dict:
     return st.launches
 
 
+# ------------------- the JAX repo's last entry points and its CLI records ----
+
+ENTRY_SNR_DB = 2.5  # Eb/N0 of entry()'s all-zero-codeword batch
+EST_BAR = 0.99  # SPA: est equal on >= 99% of frames (tanh / log ulps)
+RECORD_TARGET = 50  # --target-errors of the reduced CLI records
+RECORD_BLOCKS = 65536  # frames a point at most
+VARIANT_END_SNR = 2.5  # the decoder variants at 1.5-2.5 dB
+
+
+def entry_against_cpu(st: Studies) -> None:
+    """16a: ``entry()`` on the card against the same decoder on the CPU, on
+    its own N(0, 1) LLRs and on 256 frames of the all-zero codeword at 2.5
+    dB (a seeded ``torch.Generator``), where some decode and some do not:
+    ``ok`` and ``conv_iter`` equal on every frame, ``est`` on >= 99%."""
+    import torch
+
+    from ldpc_tpu_torch.entry import entry
+
+    c_fn, (c_llr,) = entry(device="cpu")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(16)
+    sigma2 = 1.0 / (2 * 0.5 * 10 ** (ENTRY_SNR_DB / 10))
+    y = 1.0 + math.sqrt(sigma2) * torch.randn(tuple(c_llr.shape), generator=gen)
+    zero = (-2.0 * y / sigma2).to(torch.float32)  # log(p1/p0), as entry's
+    # the plain flooding decoder: no kernel of K1-K3 launches
+    g_fn, (g_llr,) = st.run("entry()", lambda: entry(device="cuda"),
+                            none_of=("mc_decoder", "llr_decoder", "qc_decoder"))
+    if not g_llr.is_cuda or not torch.equal(g_llr.cpu(), c_llr):
+        fail("entry()'s example LLRs differ between the card and the CPU")
+    for tag, g_in, c_in, both in (("N(0, 1) example", g_llr, c_llr, False),
+                                  (f"all-zero {ENTRY_SNR_DB} dB", zero.cuda(),
+                                   zero, True)):
+        g_est, g_ok, g_conv = (o.cpu() for o in st.run(
+            f"entry() {tag}", lambda: g_fn(g_in),
+            none_of=("mc_decoder", "llr_decoder", "qc_decoder")))
+        c_est, c_ok, c_conv = c_fn(c_in)
+        est_eq = float((g_est == c_est).all(dim=1).to(torch.float64).mean())
+        n_ok = int(g_ok.sum())
+        st.equal("entry()", f"{tag}: ok ({n_ok} / {len(g_ok)} decode)",
+                 g_ok.tolist(), c_ok.tolist(), "the CPU's")
+        st.equal("entry()", f"{tag}: conv_iter", g_conv.tolist(),
+                 c_conv.tolist(), "the CPU's")
+        st.rows.append(("entry()", f"{tag}: est equal on {est_eq:.4f} of "
+                        "frames", "the CPU's", "held" if est_eq >= EST_BAR
+                        else "NOT held"))
+        log(f"  entry() {tag}: est equal on {est_eq:.4f} of frames")
+        if est_eq < EST_BAR:
+            fail(f"entry() {tag}: est equal on {est_eq:.4f} < {EST_BAR}")
+        if both and not 0 < n_ok < len(g_ok):
+            fail(f"entry() {tag}: {n_ok} of {len(g_ok)} frames decoded; "
+                 "the check needs both outcomes")
+
+
+def phase_entry_records(smi: str) -> dict:
+    """Phase 16: the JAX repo's last entry points (``entry()``, the EXIT
+    example) and its CLI-made records on the card, into a temporary
+    directory; returns the launches of K1 / K2 / K3 over the phase."""
+    import contextlib
+    import tempfile
+
+    from ldpc_tpu_torch.scripts import cli_records, exit_charts
+
+    st = Studies(smi)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(ROOT):
+        tmp = Path(tmp)
+        entry_against_cpu(st)
+        # 16b. the EXIT thresholds
+        rc = st.run("exit charts", lambda: exit_charts.main(
+            ["--out", str(tmp / "exit")], device="cuda"))
+        got = json.loads((tmp / "exit" / "exit_thresholds.json").read_text())
+        rec = json.loads(exit_charts.RECORD.read_text())
+        for key in (exit_charts.WIMAX_KEY, exit_charts.REGULAR_KEY):
+            st.equal("exit charts", f"{key} {got[key]}", got[key], rec[key])
+        if rc:
+            fail(f"exit_charts returned {rc}")
+        # 16c. the rate-1/2 density-evolution threshold
+        rate = "1/2"
+        record_db = cli_records.de_table(
+            cli_records.DE_README.read_text())[rate]
+        de = st.run(f"DE threshold {rate}", lambda: cli_records.de_rate(
+            rate, record_db, device="cuda"))
+        st.rows.append((
+            "DE threshold", f"rate {rate}: seeds "
+            f"{', '.join(f'{t:.5f}' for t in de['thresholds_db'])} dB, bar "
+            f"[{de['bar_db'][0]:.5f}, {de['bar_db'][1]:.5f}]",
+            f"{record_db} dB", "held" if de["held"] else "NOT held"))
+        log(f"  DE threshold {rate}: {de['thresholds_db']} against "
+            f"{record_db} dB ({de['seconds']:.2f} s)")
+        if not de["held"]:
+            fail(f"the DE threshold at rate {rate} is outside its bar")
+        # 16d. the CLI records at reduced counts
+        for path, end_snr in (
+                (cli_records.WATERFALL / "rate_0.5.json", None),
+                *((cli_records.VARIANTS / f"{v}.json", VARIANT_END_SNR)
+                  for v in ("sumproduct", "normalized-minsum",
+                            "offset-minsum", "minsum"))):
+            rows = st.run(f"CLI record {path.name}", lambda: cli_records
+                          .hold_record(path, target_errors=RECORD_TARGET,
+                                       blocks=RECORD_BLOCKS, end_snr=end_snr,
+                                       device="cuda", out_dir=tmp / "records"),
+                          needs=("mc_decoder",), none_of=("qc_decoder",))
+            for r in rows:
+                st.fer(f"CLI record {path.name}", f"{r['snr_db']:g} dB "
+                       f"({r['seconds']:.3f} s, {r['layer_order']}, check "
+                       f"every {r['check_every']})", r["errors"], r["frames"],
+                       (r["record_errors"], r["record_frames"]))
+    log(f"the JAX repo's last entry points and CLI records on the card "
+        f"({smi}): what | the card | the record | verdict")
+    for row in st.rows:
+        log("  " + " | ".join(row))
+    return st.launches
+
+
 # ----------------------------------------------------------------- phases ----
 
 def main(argv=None) -> int:
@@ -3135,6 +3256,12 @@ def main(argv=None) -> int:
     tp_launches = phase_throughput(smi)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s ({smi}), launches "
         f"{tp_launches}")
+
+    # ---- 16. the JAX repo's last entry points and its CLI records ----
+    t16 = time.perf_counter()
+    rec_launches = phase_entry_records(smi)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s ({smi}), launches "
+        f"{rec_launches}")
 
     if args.fer_batches:
         phase_fer(args.fer_batches)

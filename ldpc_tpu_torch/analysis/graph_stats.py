@@ -7,8 +7,8 @@ Host-side numpy analysis of a code's parity-check graph. Girth is the
 standard cycle-structure health check for an LDPC code (4-cycles cripple
 BP; the built-in QC generators enforce girth >= 6, models/generate.py) and
 pairs with the failure profiler: short-cycle neighborhoods are where the
-trapping sets found by the failure profiler (the JAX package's
-analysis.failures; not ported yet) live. The reference ships
+trapping sets found by the failure profiler
+(ldpc_tpu_torch.analysis.failures) live. The reference ships
 no graph analysis at all.
 """
 

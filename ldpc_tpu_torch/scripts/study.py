@@ -1,6 +1,7 @@
 """What the ported study scripts share: the device they record, their
 comma-separated SNR lists, their point generators, where their TPU records
-lie and the comparison of a frame-error count with its record."""
+lie, how a record's markdown table is read and the comparison of a
+frame-error count with its record."""
 
 from __future__ import annotations
 
@@ -35,6 +36,23 @@ def generator(key: int, dev: torch.device) -> torch.Generator:
     gen = torch.Generator(device=dev)
     gen.manual_seed(key >> 1)
     return gen
+
+
+def md_rows(text: str, header: str) -> list[list[str]]:
+    """The body rows of the first markdown table of ``text`` whose header
+    line starts with ``header``, each row's cells stripped."""
+    rows, inside = [], False
+    for line in text.splitlines():
+        if line.startswith(header):
+            inside = True
+            continue
+        if inside and line.startswith("|"):
+            cells = [c.strip() for c in line.strip("|").split("|")]
+            if not set(cells[0]) <= set("-"):
+                rows.append(cells)
+        elif inside:
+            break
+    return rows
 
 
 def five_se(errors: int, frames: int, ref_errors: int,

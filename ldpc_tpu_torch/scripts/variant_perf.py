@@ -33,7 +33,7 @@ import sys
 import traceback
 from pathlib import Path
 
-from ldpc_tpu_torch.scripts.study import EXAMPLES
+from ldpc_tpu_torch.scripts.study import EXAMPLES, md_rows
 
 CODE = "builtin:wimax_1152_0.5.alist.txt"
 BATCH = 4096  # frames a batch, as in the JAX script
@@ -77,18 +77,8 @@ def record_label(variant: str, iters: int, alpha: float, beta: float) -> str:
 
 def record_fers(text: str) -> dict[tuple[str, int], float]:
     """{(decoder, iters): FER} of the record's throughput table."""
-    fers, inside = {}, False
-    for line in text.splitlines():
-        if line.startswith("| decoder | iters | FER"):
-            inside = True
-            continue
-        if inside and line.startswith("|"):
-            cells = [c.strip() for c in line.strip("|").split("|")]
-            if not set(cells[0]) <= set("-"):
-                fers[(cells[0], int(cells[1]))] = float(cells[2])
-        elif inside:
-            break
-    return fers
+    return {(c[0], int(c[1])): float(c[2])
+            for c in md_rows(text, "| decoder | iters | FER")}
 
 
 def measure(code, variant, iters, alpha=0.75, beta=0.15,

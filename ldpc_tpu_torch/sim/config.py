@@ -5,9 +5,10 @@ that package), so one options bean means the same thing on both sides.
 `SimOptions` carries the reference's full flag surface
 (`python_ldpc_app/main.py:456-523`, `settings.py:4-89`) plus the simulator's
 own knobs (decode graph, check-node rule, noise model, decoder variant,
-device batch size, seed). The port honours every knob of a single-device
-run (ldpc_tpu_torch.sim.runner); meshes and the parallel sweep are still
-to be ported (ROADMAP.md). `fidelity` presets bundle the compat quirks:
+device batch size, seed). The port honours every knob, on one device
+(ldpc_tpu_torch.sim.runner) and over ranks (meshes in
+ldpc_tpu_torch.parallel, the parallel sweep in
+runner.run_simulation_parallel). `fidelity` presets bundle the compat quirks:
 
   'reference' -- decode on H_std with the reference's legacy check-node rule
                  and legacy (sigma^2-as-stddev) noise: BER/FER curves match

@@ -34,7 +34,8 @@ STUDIES = ("error_floor", "undetected_witness", "importance_floor",
            "parity_fixed_noise", "parity_spread", "family_validation",
            "perf_matrix", "family_atlas", "big_code_study", "mfu_levers",
            "variant_perf", "two_phase_envelope", "envelope_paired",
-           "two_phase_parity", "small_code_binder")
+           "two_phase_parity", "small_code_binder", "exit_charts",
+           "cli_records")
 
 _STUDY_PROBE = """
 import importlib, sys
@@ -42,7 +43,8 @@ for name in sys.argv[1:]:
     importlib.import_module("ldpc_tpu_torch." + name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ldpc_tpu", "scripts",
-                                    "bench", "__graft_entry__"))
+                                    "bench", "__graft_entry__", "examples",
+                                    "generate"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -65,7 +67,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "parallel.__init__", "parallel.distributed", "parallel.mesh",
                  "parallel.dryrun", "analysis.failures", "analysis.importance",
                  "analysis.learned_minsum", "analysis.density_evolution",
-                 "utils.legacy_rng", "utils.cache", "scripts.study",
+                 "utils.legacy_rng", "utils.cache", "scripts.study", "entry",
                  *(f"scripts.{s}" for s in STUDIES)):
         assert os.path.isfile(os.path.join(
             REPO, "ldpc_tpu_torch", *name.split(".")[:-1],
@@ -76,11 +78,12 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_studies_import_neither_jax_nor_reference_nor_its_scripts():
-    """The ported studies and their shared modules, loaded in a fresh
-    interpreter: none pulls in ``jax``, ``ldpc_tpu``, the JAX package's
-    ``scripts/``, the root ``bench.py`` or ``__graft_entry__``."""
+    """The ported studies, the entry point and their shared modules, loaded
+    in a fresh interpreter: none pulls in ``jax``, ``ldpc_tpu``, the JAX
+    package's ``scripts/``, the root ``bench.py``, ``__graft_entry__`` or
+    ``examples/`` (``exit_charts/generate.py``)."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    names = ["utils.cache", "scripts.study", "ops.metrics", "bench",
+    names = ["utils.cache", "scripts.study", "ops.metrics", "bench", "entry",
              *(f"scripts.{s}" for s in STUDIES)]
     proc = subprocess.run([sys.executable, "-c", _STUDY_PROBE, *names],
                           cwd=REPO, env=env, capture_output=True, text=True,

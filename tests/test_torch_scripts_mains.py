@@ -20,8 +20,10 @@ import torch
 from ldpc_tpu_torch.scripts import (
     big_code_study,
     burst_interleaver_study,
+    cli_records,
     envelope_paired,
     error_floor,
+    exit_charts,
     family_atlas,
     family_validation,
     importance_floor,
@@ -309,6 +311,8 @@ MAINS = {
     "envelope_paired": (envelope_paired, []),
     "two_phase_parity": (two_phase_parity, []),
     "small_code_binder": (small_code_binder, []),
+    "exit_charts": (exit_charts, []),
+    "cli_records": (cli_records, []),
 }
 
 
