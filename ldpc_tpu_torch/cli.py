@@ -210,7 +210,11 @@ Examples:
     parser.add_argument("--resume", action="store_true",
                         help="Resume the sweep from --checkpoint (skips completed points)")
     parser.add_argument("--profile", type=str, default=None,
-                        help="Capture a torch.profiler trace of the sweep into this directory")
+                        help="Capture a torch.profiler trace of the sweep "
+                             "into this directory; the trace carries the "
+                             "program's spans (point, run_point, flush, "
+                             "batch.*), and after a serial sweep "
+                             "DIR/spans.json holds them with their counters")
     parser.add_argument("--graph-stats", action="store_true",
                         help="Print the code's Tanner-graph statistics "
                              "(girth, degree histograms) as JSON and exit "

@@ -30,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ldpc_tpu_torch.utils import timing
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 DEFAULT_BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
@@ -173,10 +175,13 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 
 def load(lib) -> ctypes.CDLL:
+    """The loaded library, built first if it is not; the first load is a
+    ``library.load`` span whose ``built`` says whether ``nvcc`` ran."""
     key = _spec(lib)
     if key not in _LIBS:
-        build_all((key,))
-        _LIBS[key] = ctypes.CDLL(str(library_path(key)))
+        with timing.span("library.load", library=library_label(key)) as span:
+            span.attrs["built"] = bool(build_all((key,)))
+            _LIBS[key] = ctypes.CDLL(str(library_path(key)))
     return _LIBS[key]
 
 

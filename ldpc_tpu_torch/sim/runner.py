@@ -62,7 +62,8 @@ The parallel sweep runs the points of a batch index as one step
 frames), dealt over an ``snr`` axis.
 
 ``--profile DIR`` wraps the sweep in a ``torch.profiler`` trace written to
-DIR.
+DIR; the spans of :mod:`ldpc_tpu_torch.utils.timing` are host events of that
+trace, and go to ``DIR/spans.json`` as well.
 """
 
 from __future__ import annotations
@@ -91,7 +92,12 @@ from ldpc_tpu_torch.ops.encode import (
 )
 from ldpc_tpu_torch.ops.interleave import make_interleaver
 from ldpc_tpu_torch.ops.layered import make_qc_layered_decoder
-from ldpc_tpu_torch.ops.mc_kernels import LLRDecoder, MCDecoder
+from ldpc_tpu_torch.ops.mc_kernels import (
+    LLR_KERNEL,
+    MC_KERNEL,
+    LLRDecoder,
+    MCDecoder,
+)
 from ldpc_tpu_torch.ops.metrics import (
     BlockCounters,
     BlockStats,
@@ -100,7 +106,7 @@ from ldpc_tpu_torch.ops.metrics import (
     reduce_block_stats,
     unpack_counters,
 )
-from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
+from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL, QCDecoder
 from ldpc_tpu_torch.ops.spa import make_decoder
 from ldpc_tpu_torch.sim.config import SimOptions
 from ldpc_tpu_torch.sim.results import (
@@ -108,6 +114,7 @@ from ldpc_tpu_torch.sim.results import (
     SimulationResult,
     SNRPointResult,
 )
+from ldpc_tpu_torch.utils import timing
 from ldpc_tpu_torch.utils.db import resolve_matrix
 from ldpc_tpu_torch.utils.device import resolve_device
 
@@ -115,6 +122,7 @@ _M64 = (1 << 64) - 1
 
 
 @lru_cache(maxsize=16)
+@timing.traced("code.load")
 def load_code(path: str) -> LDPCCode:
     """Load a code from a file path, database basename, or built-in name
     (see ldpc_tpu_torch.utils.db.resolve_matrix)."""
@@ -368,6 +376,7 @@ class PointExecutor:
     ``device=None`` means the card (and raises without CUDA); the tests pass
     ``device="cpu"``, which runs the kernels' plain versions."""
 
+    @timing.traced("executor.build")
     def __init__(self, code: LDPCCode, opts: SimOptions, *,
                  max_iterations: int | None = None,
                  interleaver: str | None = None,
@@ -593,15 +602,18 @@ class PointExecutor:
         inputs."""
         if not self.fused:
             return self._unfused_step(key, consts, u=u, llr=llr)
-        gen, seeds = self._words(key)
-        if u is None:
-            u = random_info_bits(gen, self.batch, self.code.k)
+        with timing.batch_span("batch.draw"):
+            gen, seeds = self._words(key)
+            if u is None:
+                u = random_info_bits(gen, self.batch, self.code.k)
         lo, hi = self._rows
         if raw is not None and self._sharded:
             raw = raw[:, :, lo:hi].contiguous()
-        wT = self._encode_T(u[lo:hi])
-        err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw, p1,
-                                                  lo)
+        with timing.batch_span("batch.encode"):
+            wT = self._encode_T(u[lo:hi])
+        with timing.batch_span("batch.decode"):
+            err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw,
+                                                      p1, lo)
         if not self.opts.exact_ber:
             # reference: bits counted only when decode failed (main.py:134)
             err = torch.where(ok, 0, err).to(torch.int32)
@@ -612,8 +624,10 @@ class PointExecutor:
                       u: torch.Tensor | None = None,
                       llr: torch.Tensor | None = None):
         u, _, llr = self._draw(key, consts, u=u, llr=llr)
-        res = self._decoder(llr)
-        return self._stats(u, res), res.iters_run
+        with timing.batch_span("batch.decode"):
+            res = self._decoder(llr)
+        with timing.batch_span("batch.counters"):
+            return self._stats(u, res), res.iters_run
 
     def pattern_step(self, key: int, consts: torch.Tensor):
         """One unfused batch with its residual error vectors: ``(stats,
@@ -638,23 +652,26 @@ class PointExecutor:
         """(info bits, codewords, decoder input LLRs) of this rank's rows
         of one unfused batch. The whole batch is drawn on every rank, so a
         shard decodes the frames a single process decodes there."""
-        if u is None:
-            u = random_info_bits(self._generator(derive_key(key, 0)),
-                                 self.batch, self.code.k)
-        if self._S:
-            u = u.clone()
-            u[:, self.k_active:] = 0
-        w = self._encode(u)
-        w_int, il_state = self._interleave(
-            self._generator(derive_key(key, 1)), w)
-        if llr is None:
-            llr = self._channel(self._generator(derive_key(key, 2)), w_int,
-                                consts)
-        llr = self._deinterleave(il_state, llr)
-        if self._P:  # punctured parity bits arrive as erasures
-            llr = llr * self._llr_punct
-        if self._S:  # shortened info bits are known zeros
-            llr = llr * self._llr_keep - self._llr_known
+        with timing.batch_span("batch.draw"):
+            if u is None:
+                u = random_info_bits(self._generator(derive_key(key, 0)),
+                                     self.batch, self.code.k)
+            if self._S:
+                u = u.clone()
+                u[:, self.k_active:] = 0
+        with timing.batch_span("batch.encode"):
+            w = self._encode(u)
+        with timing.batch_span("batch.channel"):
+            w_int, il_state = self._interleave(
+                self._generator(derive_key(key, 1)), w)
+            if llr is None:
+                llr = self._channel(self._generator(derive_key(key, 2)),
+                                    w_int, consts)
+            llr = self._deinterleave(il_state, llr)
+            if self._P:  # punctured parity bits arrive as erasures
+                llr = llr * self._llr_punct
+            if self._S:  # shortened info bits are known zeros
+                llr = llr * self._llr_keep - self._llr_known
         lo, hi = self._rows
         return u[lo:hi], w[lo:hi], llr[lo:hi].contiguous()
 
@@ -710,6 +727,7 @@ class PointExecutor:
 
     # ----------------------------------------------------------- two-phase --
 
+    @timing.traced("auto.measure")
     def _measure_overhead(self) -> float:
         """Device time (us) of what a split adds per batch: the sort, the
         gathers, the scatters back and one LLR-kernel launch on a batch that
@@ -720,6 +738,7 @@ class PointExecutor:
         probe that prices a block trip."""
         n, B = self.code.n, self.local_batch
         dev = self.device
+        timing.count("measures")
         self.step(derive_key(self.opts.seed, 1 << 40), self.consts(0.0), 0)
         wT = torch.zeros((n, B), dtype=torch.float32, device=dev)
         llrT = torch.zeros_like(wT)
@@ -775,6 +794,7 @@ class PointExecutor:
             self._consts_cache[snr_db] = c
         return c
 
+    @timing.traced("auto.probe")
     def _probe(self, key: int, consts: torch.Tensor):
         """One single-pass batch whose convergence picks the dispatch mode;
         on the card its kernel time prices a block trip."""
@@ -791,6 +811,8 @@ class PointExecutor:
             batch_us = t0.elapsed_time(t1) * 1e3
         conv = stats.conv_iter.cpu().numpy()
         okv = stats.ok.cpu().numpy()
+        timing.count("probes")
+        timing.count("fetches", 2)
         if cuda:
             m = two_phase_trip_model(conv, okv, self.phase1,
                                      self.max_iterations, lanes=self.lanes)
@@ -805,73 +827,82 @@ class PointExecutor:
         ``run_point(s, a + b)`` equals ``run_point(s, a)`` followed by
         ``run_point(s, b, start_batch=a // batch)`` when ``a`` is a whole
         number of batches."""
-        consts = self.consts(snr_db)
-        key_point = derive_key(self.opts.seed if base_key is None else base_key,
-                               point_index)
-        B = self.batch
-        acc = torch.zeros(8, dtype=torch.float64, device=self.device)
-        stats = PointStats()
-        remaining = blocks
-        batch_idx = start_batch
-        target = self.opts.target_errors
+        with timing.span("run_point", snr=snr_db):
+            consts = self.consts(snr_db)
+            key_point = derive_key(
+                self.opts.seed if base_key is None else base_key, point_index)
+            B = self.batch
+            acc = torch.zeros(8, dtype=torch.float64, device=self.device)
+            stats = PointStats()
+            remaining = blocks
+            batch_idx = start_batch
+            target = self.opts.target_errors
 
-        def add(packed):
-            acc[:7] += packed[:7].to(torch.float64)
-            acc[7] += packed[7:8].view(torch.float32)[0].to(torch.float64)
-
-        def flush():
-            v = acc.tolist()  # the one host fetch
-            if self._sharded:
-                # the batch's counters, summed over its shards; the trips
-                # stay this rank's own
-                tot = self.mesh.all_reduce(acc, self._batch_axes).tolist()
-                v = tot[:6] + v[6:7] + tot[7:]
-            acc.zero_()
-            stats.add(BlockCounters(*(int(x) for x in v[:4]), float(v[7]),
-                                    int(v[4]), int(v[5])))
-            self.total_iters_run += int(v[6])
-
-        def batches(count: int) -> None:
-            nonlocal remaining, batch_idx
-            for _ in range(count):
-                take = min(remaining, B)
-                s, it = self.step(derive_key(key_point, batch_idx), consts, p1)
-                add(self.packed(s, it, take))
+            def add(s, it, take: int) -> None:
+                nonlocal remaining, batch_idx
+                with timing.batch_span("batch.counters"):
+                    packed = self.packed(s, it, take)
+                    acc[:7] += packed[:7].to(torch.float64)
+                    acc[7] += packed[7:8].view(torch.float32)[0].to(
+                        torch.float64)
                 remaining -= take
                 batch_idx += 1
 
-        p1 = self.phase1
-        if self._auto and remaining > 0:
-            use2 = self._two_phase_choice.get(snr_db)
-            if use2 is None:
-                take = min(remaining, B)
-                s, it, use2 = self._probe(derive_key(key_point, batch_idx), consts)
-                add(self.packed(s, it, take))
-                remaining -= take
-                batch_idx += 1
-                self._two_phase_choice[snr_db] = use2
-            self.kernel_used = self._kernel_base + (
-                f"+2phase(auto:{self.phase1})" if use2 else "+2phase(auto:off)")
-            p1 = self.phase1 if use2 else 0
-        if not target:
-            batches(-(-remaining // B))
-            flush()
-            return stats
-        # the sequential MC early stop, on the JAX runner's schedule
-        # (runner.py:1047-1091): where its fused path runs (the card, or
-        # fused='on'), the quota is checked after groups of up to 8 batches,
-        # a power of two, while two batches remain; then, and on the
-        # unfused path, after every batch
-        flush()
-        if self.fused and (self.device.type == "cuda" or self.opts.fused == "on"):
-            while remaining >= 2 * B and stats.fer_frames < target:
-                group = min(remaining // B, 8)
-                batches(1 << (group.bit_length() - 1))
+            def flush():
+                with timing.span("flush"):
+                    v = acc.tolist()  # the one host fetch
+                    if self._sharded:
+                        # the batch's counters, summed over its shards; the
+                        # trips stay this rank's own
+                        tot = self.mesh.all_reduce(
+                            acc, self._batch_axes).tolist()
+                        v = tot[:6] + v[6:7] + tot[7:]
+                    acc.zero_()
+                    stats.add(BlockCounters(*(int(x) for x in v[:4]),
+                                            float(v[7]), int(v[4]), int(v[5])))
+                    self.total_iters_run += int(v[6])
+                timing.count("fetches", 2 if self._sharded else 1)
+
+            def batches(count: int) -> None:
+                for _ in range(count):
+                    take = min(remaining, B)
+                    add(*self.step(derive_key(key_point, batch_idx), consts,
+                                   p1), take)
+
+            p1 = self.phase1
+            if self._auto and remaining > 0:
+                use2 = self._two_phase_choice.get(snr_db)
+                if use2 is None:
+                    s, it, use2 = self._probe(derive_key(key_point, batch_idx),
+                                              consts)
+                    add(s, it, min(remaining, B))
+                    self._two_phase_choice[snr_db] = use2
+                self.kernel_used = self._kernel_base + (
+                    f"+2phase(auto:{self.phase1})" if use2
+                    else "+2phase(auto:off)")
+                p1 = self.phase1 if use2 else 0
+            if not target:
+                batches(-(-remaining // B))
                 flush()
-        while remaining > 0 and stats.fer_frames < target:
-            batches(1)
-            flush()
-        return stats
+            else:
+                # the sequential MC early stop, on the JAX runner's schedule
+                # (runner.py:1047-1091): where its fused path runs (the card,
+                # or fused='on'), the quota is checked after groups of up to
+                # 8 batches, a power of two, while two batches remain; then,
+                # and on the unfused path, after every batch
+                flush()
+                if self.fused and (self.device.type == "cuda"
+                                   or self.opts.fused == "on"):
+                    while remaining >= 2 * B and stats.fer_frames < target:
+                        group = min(remaining // B, 8)
+                        batches(1 << (group.bit_length() - 1))
+                        flush()
+                while remaining > 0 and stats.fer_frames < target:
+                    batches(1)
+                    flush()
+            timing.count("batches", batch_idx - start_batch)
+            timing.count("frames", blocks - remaining)
+            return stats
 
 
 # ------------------------------------------------------------------ sweep ----
@@ -1047,7 +1078,23 @@ def run_simulation(
     ``opts.output_json`` / ``opts.output_csv`` when set. ``mesh``
     (:func:`ldpc_tpu_torch.parallel.mesh.make_mesh`) shards each batch over
     its ``batch`` axis; the counters equal an unmeshed run's.
-    ``device=None`` means the card."""
+    ``device=None`` means the card. With ``opts.profile``, the recorded
+    spans and counters (:mod:`ldpc_tpu_torch.utils.timing`) and the decode
+    kernels' launch counts go to ``<profile>/spans.json`` when the sweep
+    ends."""
+    with timing.span("run_simulation"):
+        result = _sweep(opts, code, mesh, device)
+    if opts.profile:
+        os.makedirs(opts.profile, exist_ok=True)
+        timing.RECORDER.export(
+            os.path.join(opts.profile, "spans.json"),
+            launches={k.symbol: k.launches
+                      for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL)})
+    return result
+
+
+def _sweep(opts: SimOptions, code: LDPCCode | None, mesh,
+           device) -> SimulationResult:
     opts = opts.resolved()
     device = resolve_device(device)
     start_time = time.time()
@@ -1074,9 +1121,9 @@ def run_simulation(
             if executor is None:
                 executor = PointExecutor(code, opts, device=device, mesh=mesh)
             say(f"\nSNR: {snr:.2f} dB")
-            t_point = time.time()
-            stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
-            point_s = time.time() - t_point
+            with timing.span("point", snr=snr) as span:
+                stats = executor.run_point(snr, opts.blocks, opts.seed, idx)
+            point_s = span.seconds
             point = build_point_result(snr, stats, opts, executor.k_active)
             snr_points.append(point)
             if opts.normalized_llr:

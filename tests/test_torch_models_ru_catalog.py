@@ -1,7 +1,7 @@
 """The port's numpy copies against the JAX package's modules: the
 Richardson-Urbanke encoder (``models/ru.py``), the code generators
 (``models/generate.py``), the matrix catalog (``models/catalog.py``), graph
-statistics, EXIT charts and the timer.
+statistics and EXIT charts.
 
 Tolerance: none. Every module is integer or float64 numpy arithmetic run in
 the same order on both sides, so every output is equal.
@@ -25,7 +25,6 @@ from ldpc_tpu_torch.models import generate as tgen
 from ldpc_tpu_torch.models import standards as tstd
 from ldpc_tpu_torch.models.code import LDPCCode as TCode
 from ldpc_tpu_torch.ops.encode import make_encoder
-from ldpc_tpu_torch.utils.timing import Timer
 
 torch.set_num_threads(1)
 
@@ -159,10 +158,3 @@ def test_exit_charts_match_jax():
     for a, b in zip(texit.exit_curves(tc.qc, 1.0, 0.5),
                     jexit.exit_curves(jc.qc, 1.0, 0.5)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_timer_laps():
-    t = Timer()
-    assert t.lap("a") >= 0.0 and t.lap("a") >= 0.0
-    assert set(t.laps) == {"a"}
-    t.reset()
