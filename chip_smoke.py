@@ -85,11 +85,19 @@ Phases:
    codewords sharing a warp), row degrees 15, 20 and 22, ``skip=1``, n=4608
    and n=9216 under flooding (384 and 768 threads), n=9216 layered paired
    SPA-12 with a check every two sweeps, and 16-QAM mode-2 LLRs as input.
+   6b. K6 ``qam_channel`` (the unfused path's Gray-QAM channel in one
+   kernel) against its plain version, the interleave -> channel ->
+   deinterleave chain, at 4096 frames of wimax 1152 and 576 codewords, for
+   channel modes 1-3 x QPSK / 16-QAM / 64-QAM x interleaver none / regular /
+   random, both sides from generators of the same seeds: the LLRs equal bit
+   for bit, one launch a call; its ``ptxas`` line; then K6 timed at the
+   16-QAM mode-2 random configuration beside its bound by bytes, the
+   wrapper's whole call (draws and argsort) and the plain chain.
 7. The unfused path through ``run_simulation``: the burst-interleaver
    configuration at wimax 1152 (16-QAM, mode-2 jamming p 0.15 at -3 dB,
    random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
-   batches of 4096; its JSON written and read back; K3 must launch once per
-   batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
+   batches of 4096; its JSON written and read back; K3 and K6 must launch
+   once per batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
    BPSK, at 2.0 dB over 64 batches, through K3 (``fused='off'``: K3 once
    per batch) and through the fused kernels (``auto``, then ``--two-phase
    off``: K1, never K3), each with its info bits/s; then where the time of
@@ -750,6 +758,99 @@ def phase_qc_compare(dev):
     return worst, kept
 
 
+QAM_CODES = (W1152, "builtin:wimax_576_0.5.alist.txt")
+
+
+def phase_qam_channel(dev, smi: str) -> dict:
+    """Phase 6b: K6 ``qam_channel`` against its plain version (the
+    interleave -> channel -> deinterleave chain) at B=4096 on WiMAX
+    codewords of n=1152 and n=576, for every channel mode x QAM order 4 /
+    16 / 64 x interleaver none / regular / random, each side from
+    generators of the same seeds: the LLRs equal bit for bit (max |diff|
+    0), one launch a call. Then K6 timed with CUDA events at the 16-QAM
+    jamming configuration (mode 2, random interleaver, n=1152) beside its
+    bound by bytes, the wrapper's whole call (the draws and the argsort
+    with it) and the plain chain. Returns the ``kernels`` entry less its
+    ``launches``, which come from the main path's headline run (phase 7)."""
+    import torch
+
+    from ldpc_tpu_torch.ops import build
+    from ldpc_tpu_torch.ops.channel import ChannelParams
+    from ldpc_tpu_torch.ops.encode import make_encoder, random_info_bits
+    from ldpc_tpu_torch.ops.qam_channel import QAM_CHANNEL, QAMChannel
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    def gens(seed):
+        return (torch.Generator(device=dev).manual_seed(seed),
+                torch.Generator(device=dev).manual_seed(seed + 1))
+
+    def consts_of(mode, order):
+        return ChannelParams(mode=mode, modulation=order, speed=0.5,
+                             snr_db=5.5, interference_snr_db=-3.0, p=0.15,
+                             noise_model="exact").consts(dev)
+
+    log(f"compare qam_channel (B={BATCH}, max |diff| against the plain "
+        "chain, bar 0):")
+    worst, cases, launches0 = 0.0, 0, QAM_CHANNEL.launches
+    for name in QAM_CODES:
+        code = load_code(name)
+        w = make_encoder(code.standard_encode_spec, "orig", dev)(
+            random_info_bits(gens(3)[0], BATCH, code.k))
+        row = []
+        for mode in (1, 2, 3):
+            for order in (4, 16, 64):
+                consts = consts_of(mode, order)
+                for kind in ("none", "regular", "random"):
+                    ch = QAMChannel(mode, order, code.n, kind, device=dev)
+                    got = ch(*gens(17), w, consts)
+                    want = ch.plain(*gens(17), w, consts)
+                    sync()
+                    gap = float((got - want).abs().max())
+                    row.append(f"m{mode} q{order} {kind} {gap:g}")
+                    if not torch.equal(got, want):
+                        fail(f"qam_channel n={code.n} mode {mode} order "
+                             f"{order} {kind}: {int((got != want).sum())} of "
+                             f"{got.numel()} LLRs differ, max |diff| {gap:g}")
+                    worst, cases = max(worst, gap), cases + 1
+        log(f"  n={code.n} ({ch.frames} frame(s), {ch.threads} threads a "
+            f"block at 64-QAM): " + ", ".join(row))
+    launches = QAM_CHANNEL.launches - launches0
+    log(f"qam_channel launches in phase 6b: {launches} for {cases} calls")
+    if launches != cases:
+        fail(f"qam_channel launched {launches} times for {cases} calls")
+    log("ptxas qam_channel: " + ", ".join(
+        f"{k} {v}" for k, v in build.ptxas_report(
+            build.ptxas_log("qam_channel")).items()))
+
+    code = load_code(W1152)
+    n, mode, order = code.n, 2, 16
+    w = make_encoder(code.standard_encode_spec, "orig", dev)(
+        random_info_bits(gens(5)[0], BATCH, code.k))
+    consts = consts_of(mode, order)
+    ch = QAMChannel(mode, order, n, "random", device=dev)
+    g_draw, g_call, g_plain = gens(31), gens(41), gens(51)
+    drawn = ch.draws(*g_draw, BATCH)
+    t_k6 = time_ms(lambda: ch.launch(w, *drawn, consts), reps=50)
+    t_draws = time_ms(lambda: ch.draws(*g_draw, BATCH), reps=20)
+    t_call = time_ms(lambda: ch(*g_call, w, consts), reps=20)
+    t_plain = time_ms(lambda: ch.plain(*g_plain, w, consts), reps=20)
+    # each byte once: codeword, permutation row, jam and two normals per
+    # symbol, the LLRs out
+    nbytes = BATCH * (4 * n + 8 * n + 3 * 4 * ch.n_sym + 4 * n)
+    bound, by = bound_ms(0, nbytes, 1.0)
+    log(f"timing qam_channel (16-QAM, mode 2, random, n={n}, B={BATCH}; "
+        f"{smi}): {t_k6:.4f} ms (bound {bound:.5f} ms by {by}, {nbytes} "
+        f"bytes: {100 * bound / t_k6:.1f}% of it); the draws and argsort "
+        f"{t_draws:.4f} ms; the wrapper's call {t_call:.4f} ms; the plain "
+        f"chain {t_plain:.4f} ms; {ch.frames} frame(s), {ch.threads} threads "
+        f"a block")
+    return {"name": "qam_channel", "route": "cuda",
+            "source": CSRC + "qam_channel.cu", "replaces": None,
+            "max_abs_err": worst, "ms": t_k6,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, float]:
     """|FER - reference FER| and 5 combined standard errors of the two: the
     studies' own comparison (``scripts.study.five_se``, from the pooled
@@ -763,11 +864,12 @@ def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, floa
 def phase_unfused(dev):
     """Phases 7 and 8: the unfused path through ``run_simulation``, and the
     CLI's default flooding configuration both through K3 (``fused='off'``)
-    and through the fused kernels. Returns K3's launches on the headline run
-    and its per-batch count."""
+    and through the fused kernels. Returns K3's and K6's launches on the
+    headline run, each counted from 0 just before it, and its batches."""
     import torch
 
     from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.qam_channel import QAM_CHANNEL
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
     from ldpc_tpu_torch.sim.config import SimOptions
     from ldpc_tpu_torch.sim.results import SimulationResult
@@ -781,7 +883,7 @@ def phase_unfused(dev):
         """``run_simulation`` over the points, its own per-point lines
         (FER, BER, codewords/s and info bits/s) in the log; K3 must launch
         once per batch and K1 / K2 never, or, ``via_fused``, K1 must launch
-        and K3 never."""
+        and K3 never; K6 once per batch under QAM, else never."""
         opts = SimOptions(matrix=W1152, blocks=batches * BATCH, ber=True,
                           fer=True, fidelity="exact", speed=0.5, batch=BATCH,
                           seed=7, initial_snr=initial, end_snr=end,
@@ -796,7 +898,7 @@ def phase_unfused(dev):
                                      "end_snr": initial, "output_json": None,
                                      "quiet": True}), code)
         torch.cuda.synchronize()
-        for k in (QC_KERNEL, MC_KERNEL, LLR_KERNEL):
+        for k in (QC_KERNEL, MC_KERNEL, LLR_KERNEL, QAM_CHANNEL):
             k.launches = 0
         t0 = time.perf_counter()
         res = run_simulation(opts, code)
@@ -804,11 +906,16 @@ def phase_unfused(dev):
         elapsed = time.perf_counter() - t0
         launches = {"qc_decoder": QC_KERNEL.launches,
                     "mc_decoder": MC_KERNEL.launches,
-                    "llr_decoder": LLR_KERNEL.launches}
+                    "llr_decoder": LLR_KERNEL.launches,
+                    "qam_channel": QAM_CHANNEL.launches}
         back = SimulationResult.from_json(str(out_dir / f"{tag}.json"))
         if [vars(p) for p in back.snr_points] != [vars(p) for p in res.snr_points]:
             fail(f"{tag}: the JSON read back differs from the result")
         n_batches = batches * len(res.snr_points)
+        qam = kw.get("modulation", 1) in (4, 16, 64)
+        if launches["qam_channel"] != (n_batches if qam else 0):
+            fail(f"{tag}: qam_channel launched {launches['qam_channel']} "
+                 f"times for {n_batches} batches")
         for p in res.snr_points:
             log(f"{tag} {p.snr_db:.2f} dB: FER {p.fer:.6f} "
                 f"({p.failed_blocks}/{p.total_blocks}), BER {p.ber:.3e}, "
@@ -822,13 +929,13 @@ def phase_unfused(dev):
         if via_fused:
             if launches["mc_decoder"] < n_batches or launches["qc_decoder"]:
                 fail(f"{tag}: the fused path launched {launches}")
-            return res, launches["mc_decoder"], n_batches
+            return res, launches, n_batches
         if launches["qc_decoder"] != n_batches:
             fail(f"{tag}: qc_decoder launched {launches['qc_decoder']} times "
                  f"for {n_batches} batches")
         if launches["mc_decoder"] or launches["llr_decoder"]:
             fail(f"{tag}: a fused kernel launched on the unfused path")
-        return res, launches["qc_decoder"], n_batches
+        return res, launches, n_batches
 
     # the headline: the burst-interleaver study's configuration at 1152
     head, head_launches, head_batches = sweep(
@@ -872,7 +979,8 @@ def phase_unfused(dev):
         f" = {REF_BURST[0] / REF_BURST[1]:.6f}: |diff| {gap:.6f}, 5 se {bar:.6f}")
     if gap > bar:
         fail("burst FER outside 5 combined standard errors of the TPU's")
-    return head_launches, head_batches
+    return (head_launches["qc_decoder"], head_launches["qam_channel"],
+            head_batches)
 
 
 def flooding_routes(code) -> None:
@@ -3208,12 +3316,13 @@ def main(argv=None) -> int:
 
     QC_KERNEL.launches = 0
     qc_err, kept = phase_qc_compare(dev)
-    qc_launches, qc_batches = phase_unfused(dev)
+    k6 = phase_qam_channel(dev, smi)
+    qc_launches, k6["launches"], qc_batches = phase_unfused(dev)
     qc_times = phase_qc_timing(kept, peak)
     phase_fused_fer()
     phase_unfused_split(smi)
     log(f"qc_decoder launches per batch on the headline run: "
-        f"{qc_launches / qc_batches:g}")
+        f"{qc_launches / qc_batches:g}; qam_channel {k6['launches']}")
 
     # ---- 10. the roofline path (K4, K5) ----
     roof = phase_roofline(dev, smi, peak)
@@ -3286,6 +3395,7 @@ def main(argv=None) -> int:
          "bound_ms": qc_times["layered spa-12 serial (16-QAM)"][2],
          "bound_by": qc_times["layered spa-12 serial (16-QAM)"][3],
          "library_ms": None},
+        k6,
         *roof["kernels"],
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
 directory ``.gitignore`` lists; ``utils.cache.enable_compile_cache`` moves
 it through :func:`set_build_dir`): K1, K2 and K3 are one source each over the
-shared decode body ``csrc/decode_group.cuh``. The hash covers the source,
+shared decode body ``csrc/decode_group.cuh``, K6 (the QAM channel) one on its
+own. The hash covers the source,
 the headers of ``csrc``, the flags and the library's own ``-D`` defines, so
 an edited source or header builds anew and one source can give several
 libraries (K5's schedule is baked in by defines).
@@ -36,7 +37,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 DEFAULT_BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
 BUILD_DIR = DEFAULT_BUILD_DIR
-SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline")
+SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline",
+           "qam_channel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 

@@ -76,18 +76,57 @@ def load_permutation(path: str, n: int) -> np.ndarray:
     return pi
 
 
+def static_permutation(kind: str, n: int, s_param: int = 2,
+                       seed: int = 0) -> np.ndarray | None:
+    """The fixed permutation pi [n] of ``regular``, ``srandom`` and
+    ``file:``; None for ``none`` and ``random``. Raises on an unknown
+    kind."""
+    kind_l = kind.lower()
+    if kind_l in ("none", "random"):
+        return None
+    if kind_l == "regular":
+        return regular_permutation(n)
+    if kind_l == "srandom":
+        return srandom_permutation(n, s_param, seed)
+    if kind_l.startswith("file:"):
+        return load_permutation(kind[5:], n)
+    raise ValueError(f"Unknown interleaver type: {kind}")
+
+
+def random_permutation(generator: torch.Generator, shape) -> torch.Tensor:
+    """A uniform permutation per row, int64 ``shape``: the argsort of iid
+    uniforms drawn from ``generator`` on its device."""
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    return torch.argsort(u, dim=-1)
+
+
 def make_interleaver(kind: str, n: int, s_param: int = 2, seed: int = 0,
-                     device: str | torch.device = "cpu"):
+                     device: str | torch.device = "cpu",
+                     pi_np: np.ndarray | None = None):
     """Build ``(interleave, deinterleave)`` for tensors [B, n].
 
     ``interleave(generator, bits) -> (bits_interleaved, state)`` and
     ``deinterleave(state, llr) -> llr_deinterleaved``; ``state`` is the
     per-codeword permutation (int64 [B, n]) for ``random``, else None. Only
-    ``random`` draws from the generator.
+    ``random`` draws from the generator. ``pi_np`` is the fixed permutation
+    of ``regular`` / ``srandom`` / ``file:`` where the caller has already
+    made it (:func:`static_permutation`).
     """
-    kind_l = kind.lower()
+    if pi_np is None:
+        pi_np = static_permutation(kind, n, s_param, seed)
 
-    if kind_l == "none":
+    if kind.lower() == "random":
+        def interleave(generator, bits):
+            pi_b = random_permutation(generator, bits.shape)
+            return torch.gather(bits, -1, pi_b), pi_b
+
+        def deinterleave(pi_b, llr):
+            return torch.empty_like(llr).scatter_(-1, pi_b, llr)
+
+        return interleave, deinterleave
+
+    if pi_np is None:  # none
         def interleave(generator, bits):
             return bits, None
 
@@ -96,35 +135,14 @@ def make_interleaver(kind: str, n: int, s_param: int = 2, seed: int = 0,
 
         return interleave, deinterleave
 
-    if kind_l in ("regular", "srandom") or kind_l.startswith("file:"):
-        if kind_l == "regular":
-            pi_np = regular_permutation(n)
-        elif kind_l == "srandom":
-            pi_np = srandom_permutation(n, s_param, seed)
-        else:
-            pi_np = load_permutation(kind[5:], n)
-        pi = torch.as_tensor(pi_np.astype(np.int64), device=device)
-        inv = torch.as_tensor(np.argsort(pi_np).astype(np.int64), device=device)
+    pi = torch.as_tensor(pi_np.astype(np.int64), device=device)
+    inv = torch.as_tensor(np.argsort(pi_np).astype(np.int64), device=device)
 
-        def interleave(generator, bits):
-            return bits.index_select(-1, pi), None
+    def interleave(generator, bits):
+        return bits.index_select(-1, pi), None
 
-        def deinterleave(state, llr):
-            # out[pi[i]] = llr[i]  <=>  out = llr[inv]
-            return llr.index_select(-1, inv)
+    def deinterleave(state, llr):
+        # out[pi[i]] = llr[i]  <=>  out = llr[inv]
+        return llr.index_select(-1, inv)
 
-        return interleave, deinterleave
-
-    if kind_l == "random":
-        def interleave(generator, bits):
-            u = torch.rand(bits.shape, generator=generator,
-                           device=bits.device, dtype=torch.float32)
-            pi_b = torch.argsort(u, dim=-1)  # iid uniforms -> uniform permutation
-            return torch.gather(bits, -1, pi_b), pi_b
-
-        def deinterleave(pi_b, llr):
-            return torch.empty_like(llr).scatter_(-1, pi_b, llr)
-
-        return interleave, deinterleave
-
-    raise ValueError(f"Unknown interleaver type: {kind}")
+    return interleave, deinterleave

@@ -27,7 +27,8 @@ splits into three generators (info bits, interleaver, channel):
 
 1. random info bits, the last S zeroed under shorten;
 2. the systematic encode into [B, n];
-3. interleave; the channel (ops.channel); deinterleave;
+3. interleave; the channel (ops.channel); deinterleave: for Gray QAM one
+   kernel on the card, K6 (ops.qam_channel), from the same draws;
 4. punctured positions become erasures (``llr * mask``), shortened ones
    known zeros (-60);
 5. the decoder :func:`_select_decoder` picks as the JAX runner does: the
@@ -106,6 +107,7 @@ from ldpc_tpu_torch.ops.metrics import (
     reduce_block_stats,
     unpack_counters,
 )
+from ldpc_tpu_torch.ops.qam_channel import QAM_CHANNEL, QAMChannel
 from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL, QCDecoder
 from ldpc_tpu_torch.ops.spa import make_decoder
 from ldpc_tpu_torch.sim.config import SimOptions
@@ -542,9 +544,20 @@ class PointExecutor:
         self._llr_keep = torch.as_tensor(1.0 - llr_short, device=dev)
         self._llr_known = torch.as_tensor(KNOWN_LLR * llr_short, device=dev)
         self._encode = make_encoder(spec, self.graph, dev)
-        self._interleave, self._deinterleave = make_interleaver(
-            il_kind, code.n, s_param=opts.s_param, seed=opts.seed, device=dev)
-        self._channel = make_channel_fn(opts.mode, self.modulation, n=code.n)
+        if self.modulation in (4, 16, 64):  # one kernel on the card (K6)
+            self._qam = QAMChannel(opts.mode, self.modulation, code.n, il_kind,
+                                   s_param=opts.s_param, seed=opts.seed,
+                                   device=dev)
+            # the plain pieces stay for step's llr= injection
+            self._interleave, self._deinterleave = (self._qam.interleave,
+                                                    self._qam.deinterleave)
+        else:
+            self._qam = None
+            self._interleave, self._deinterleave = make_interleaver(
+                il_kind, code.n, s_param=opts.s_param, seed=opts.seed,
+                device=dev)
+            self._channel = make_channel_fn(opts.mode, self.modulation,
+                                            n=code.n)
         self._decoder, self.kernel_used = _select_decoder(
             code, opts, info_pos, self.max_iterations, dev, self.graph)
 
@@ -662,12 +675,16 @@ class PointExecutor:
         with timing.batch_span("batch.encode"):
             w = self._encode(u)
         with timing.batch_span("batch.channel"):
-            w_int, il_state = self._interleave(
-                self._generator(derive_key(key, 1)), w)
-            if llr is None:
-                llr = self._channel(self._generator(derive_key(key, 2)),
-                                    w_int, consts)
-            llr = self._deinterleave(il_state, llr)
+            gen_il = self._generator(derive_key(key, 1))
+            if llr is None and self._qam is not None:
+                llr = self._qam(gen_il, self._generator(derive_key(key, 2)), w,
+                                consts)
+            else:
+                w_int, il_state = self._interleave(gen_il, w)
+                if llr is None:
+                    llr = self._channel(self._generator(derive_key(key, 2)),
+                                        w_int, consts)
+                llr = self._deinterleave(il_state, llr)
             if self._P:  # punctured parity bits arrive as erasures
                 llr = llr * self._llr_punct
             if self._S:  # shortened info bits are known zeros
@@ -1079,9 +1096,9 @@ def run_simulation(
     (:func:`ldpc_tpu_torch.parallel.mesh.make_mesh`) shards each batch over
     its ``batch`` axis; the counters equal an unmeshed run's.
     ``device=None`` means the card. With ``opts.profile``, the recorded
-    spans and counters (:mod:`ldpc_tpu_torch.utils.timing`) and the decode
-    kernels' launch counts go to ``<profile>/spans.json`` when the sweep
-    ends."""
+    spans and counters (:mod:`ldpc_tpu_torch.utils.timing`) and the
+    kernels' launch counts (K1-K3, K6) go to ``<profile>/spans.json`` when
+    the sweep ends."""
     with timing.span("run_simulation"):
         result = _sweep(opts, code, mesh, device)
     if opts.profile:
@@ -1089,7 +1106,8 @@ def run_simulation(
         timing.RECORDER.export(
             os.path.join(opts.profile, "spans.json"),
             launches={k.symbol: k.launches
-                      for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL)})
+                      for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL,
+                                QAM_CHANNEL)})
     return result
 
 
