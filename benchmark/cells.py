@@ -5,6 +5,9 @@ and traffic. The files are:
 
 * ``benchmark/configs/<config>.json``: the deployment (code, channel,
   decoder, batch) and the simulator options it is run with;
+* ``benchmark/reference/codes/<family>.py``: the reference's copy of a code
+  family, ``build(code) -> QCCode``, chosen by the configuration's
+  ``code.family`` and held to the ``n``, ``k`` and ``z`` it states;
 * ``benchmark/traffic/<traffic>.json``: the traffic mix, read by the one
   generator in ``benchmark/harness.py``;
 * ``benchmark/workloads/<cell>.json``: how the cell's outputs are checked
@@ -14,8 +17,11 @@ and traffic. The files are:
   A metric ``<base>.<cells>`` (one quantity split by the end-to-end metric
   its cells report) without a file of its own is read by ``<base>.py``.
 
-A later cell, configuration or metric is a new file and a new entry in
-``BENCHMARK.json``; no existing file changes.
+A later cell, configuration, code family or metric is a new file and a new
+entry in ``BENCHMARK.json``; no existing file changes, as long as the plain
+reference already decodes what the cell runs: a quasi-cyclic code under
+layered sum-product, on the fused BPSK path or the unfused channel, as
+streaming calls or as sweeps of ``run_simulation``.
 """
 
 from __future__ import annotations

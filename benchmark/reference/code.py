@@ -1,9 +1,7 @@
-"""The IEEE 802.16e rate-1/2 LDPC code, its systematic GF(2) encoder and its
-layer order, written from the standard.
-
-IEEE Std 802.16e-2005, 8.4.9.2.5: a 12 x 24 base matrix of circulant shifts
-at the largest lift z0 = 96; a code of length n = 24 z takes each shift p as
-floor(p z / 96). Nothing here is read from the program under test.
+"""A quasi-cyclic LDPC code, its systematic GF(2) encoder and its layer
+order. Each code family builds one from its standard's base matrix in
+``benchmark/reference/codes/<family>.py``. Nothing here is read from the
+program under test.
 """
 
 from __future__ import annotations
@@ -12,24 +10,6 @@ from dataclasses import dataclass
 from functools import cached_property
 
 import numpy as np
-
-# rate 1/2, shifts at z0 = 96 ('-' is the zero block)
-RATE_HALF = """\
- -  94  73   -   -   -   -   -  55  83   -   -   7   0   -   -   -   -   -   -   -   -   -   -
- -  27   -   -   -  22  79   9   -   -   -  12   -   0   0   -   -   -   -   -   -   -   -   -
- -   -   -  24  22  81   -  33   -   -   -   0   -   -   0   0   -   -   -   -   -   -   -   -
-61   -  47   -   -   -   -   -  65  25   -   -   -   -   -  0   0   -   -   -   -   -   -   -
- -   -  39   -   -   -  84   -   -  41  72   -   -   -   -   -   0   0   -   -   -   -   -   -
- -   -   -   -  46  40   -  82   -   -   -  79   0   -   -   -   -   0   0   -   -   -   -   -
- -   -  95  53   -   -   -   -   -  14  18   -   -   -   -   -   -   -   0   0   -   -   -   -
- -  11  73   -   -   -   2   -   -  47   -   -   -   -   -   -   -   -   -   0   0   -   -   -
-12   -   -   -  83  24   -  43   -   -   -  51   -   -   -   -   -   -   -   -   0   0   -   -
- -   -   -   -   -  94   -  59   -   -  70  72   -   -   -   -   -   -   -   -   -   0   0   -
- -   -   7  65   -   -   -   -  39  49   -   -   -   -   -   -   -   -   -   -   -   -   0   0
-43   -   -   -   -  66   -  41   -   -   -  26   7   -   -   -   -   -   -   -   -   -   -   0
-"""
-TABLES = {"1/2": RATE_HALF}
-Z0 = 96
 
 
 @dataclass(frozen=True)
@@ -122,13 +102,12 @@ class QCCode:
         return [bi for g in groups for bi in g]
 
 
-def wimax(n: int, rate: str = "1/2") -> QCCode:
-    """The 802.16e code of length ``n`` (a multiple of 24, 576..2304)."""
-    Z = n // 24
-    edges = []
-    for bi, line in enumerate(TABLES[rate].strip().splitlines()):
-        for bj, cell in enumerate(line.split()):
-            if cell != "-":
-                edges.append((bi, bj, int(cell) * Z // Z0))
-    mb = bi + 1
-    return QCCode(n=n, m=mb * Z, Z=Z, nb=24, mb=mb, edges=tuple(edges))
+
+def from_blocks(blocks: list[list[tuple[int, ...]]], Z: int) -> QCCode:
+    """The code whose base block (bi, bj) is the sum of the Z x Z circulants
+    of the shifts ``blocks[bi][bj]`` (none: the zero block), one slot each,
+    in the order given."""
+    edges = tuple((bi, bj, s) for bi, row in enumerate(blocks)
+                  for bj, shifts in enumerate(row) for s in shifts)
+    mb, nb = len(blocks), len(blocks[0])
+    return QCCode(n=nb * Z, m=mb * Z, Z=Z, nb=nb, mb=mb, edges=edges)

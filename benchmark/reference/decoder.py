@@ -5,6 +5,11 @@ start at the channel LLRs and the check-to-variable messages E at zero. A
 sweep visits the base rows in the schedule's order; a row with slots
 (bj, s) reads q = L[bj Z + (z + s) % Z] - E, sets
 E' = 2 atanh(prod over the other slots of tanh(q / 2)) and writes q + E' back.
+A row whose slots meet one base column more than once (a block that is a
+sum of circulants, as in the CCSDS codes) reads every q from the posteriors
+as they stood before the row, and then adds to each of its base columns, once,
+the sum of its slots' changes E' - E, each moved back by its shift, in slot
+order.
 A codeword stops changing once it passes the syndrome check made after
 every ``check_every`` sweeps; ``conv`` is the last sweep of that window
 (0-based), -1 if it never passed within the budget. The leave-one-out
@@ -14,6 +19,8 @@ below 1 of the arithmetic's type.
 """
 
 from __future__ import annotations
+
+from functools import reduce
 
 import torch
 
@@ -35,7 +42,14 @@ class LayeredSPA:
         var, chk = [], []
         for bi, slots in enumerate(code.row_slots()):
             idx = torch.cat([bj * Z + (z + s) % Z for bj, s in slots])
-            self.rows.append((self.slots, len(slots), idx))
+            # base column -> its slots j, each with the rows (z - s) % Z that
+            # move a change of slot j back to the column's rows
+            cols: dict[int, list] = {}
+            for j, (bj, s) in enumerate(slots):
+                cols.setdefault(bj * Z, []).append((j, (z - s) % Z))
+            self.rows.append((self.slots, len(slots), idx,
+                              None if len(cols) == len(slots)
+                              else list(cols.items())))
             self.slots += len(slots)
             var.append(idx)
             chk.append((bi * Z + z).repeat(len(slots)))
@@ -74,12 +88,22 @@ class LayeredSPA:
             live = ~done
             for _ in range(self.check_every):
                 for bi in self.order:
-                    lo, d, idx = self.rows[bi]
+                    lo, d, idx, cols = self.rows[bi]
                     old = L[idx]
                     e_old = E[lo:lo + d]
                     q = old.view(d, Z, B) - e_old
                     e_new = self._check(q)
-                    L[idx] = torch.where(live, (q + e_new).view(d * Z, B), old)
+                    if cols is None:
+                        L[idx] = torch.where(live, (q + e_new).view(d * Z, B),
+                                             old)
+                    else:
+                        change = e_new - e_old
+                        for start, js in cols:
+                            total = reduce(torch.add, (change[j][back]
+                                                       for j, back in js))
+                            col = L[start:start + Z]
+                            L[start:start + Z] = torch.where(live, col + total,
+                                                             col)
                     E[lo:lo + d] = torch.where(live, e_new, e_old)
             it += self.check_every
             passed = ~self.unsatisfied(L)

@@ -17,8 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference import channel, rng
-from benchmark.reference.code import wimax
+from benchmark.reference import channel, codes, rng
 from benchmark.reference.decoder import LayeredSPA
 
 COUNTERS = ("frames", "frame_errors", "bit_errors", "converged", "conv_sum")
@@ -36,7 +35,7 @@ class Reference:
         self.o = o
         self.device = torch.device(device)
         self.dtype = dtype
-        self.code = wimax(config["code"]["n"], config["code"]["rate"])
+        self.code = codes.build(config["code"])
         self.batch = o["batch"]
         info, _, _ = self.code.systematic
         self.info = torch.as_tensor(info, device=self.device)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from benchmark import cells, census
-from benchmark.reference.code import wimax
+from benchmark.reference.codes.ieee802_16e import wimax
 
 CONFIGS = ("w1152-bpsk-layered12", "w1152-16qam-jam-layered12")
 

@@ -18,6 +18,7 @@ import torch
 
 from benchmark import cells, check, harness, trace
 from benchmark.harness import unit_key
+from benchmark.reference import codes
 from benchmark.reference.sim import Reference
 from benchmark.test_bench_reference import CELLS, small
 
@@ -44,6 +45,11 @@ def test_new_files_are_found_by_name(tmp_path):
         {"units": 1, "limits": {"frames_gap": 0, "counter_gap": 0.5}}))
     (b / "metrics" / "frames_traced.py").write_text(
         "def read(ctx):\n    return ctx.totals()['frames'] or None\n")
+    (b / "reference" / "codes" / "dual_diagonal.py").write_text(
+        "from benchmark.reference.code import from_blocks\n"
+        "def build(code):\n"
+        "    return from_blocks([[(1,), (0,), ()], [(), (0,), (0,)]],"
+        " code['z'])\n")
     spec = json.loads((tmp_path / "BENCHMARK.json").read_text())
     spec["configs"].append({"name": "w1152-bpsk-flood16", "source": "x",
                             "file": "benchmark/configs/w1152-bpsk-flood16.json",
@@ -66,6 +72,12 @@ def test_new_files_are_found_by_name(tmp_path):
     st = trace.Stretch(1.0, 0.5, [], {}, [],
                        units=[[{k: 1 for k in check.COUNTERS}]])
     assert read(harness.Context(c, st, None, "cpu", True, [])) == 1
+    here = b / "reference" / "codes"
+    assert codes.families(here) == ["ccsds_tc", "dual_diagonal",
+                                    "ieee802_16e"]
+    qc = codes.build({"family": "dual_diagonal", "n": 12, "k": 4, "z": 4},
+                     here)
+    assert qc.edges == ((0, 0, 1), (0, 1, 0), (1, 1, 0), (1, 2, 0))
     for p, data in before.items():
         assert p.read_bytes() == data
     assert all(m["name"] != "frames_traced"
