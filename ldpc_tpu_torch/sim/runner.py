@@ -121,6 +121,8 @@ from ldpc_tpu_torch.utils.db import resolve_matrix
 from ldpc_tpu_torch.utils.device import resolve_device
 
 _M64 = (1 << 64) - 1
+# the trip model's terms an ``auto.probe`` span carries
+PROBE_TERMS = ("single", "phase1_mean", "phase2_per_tile", "overhead_trips")
 
 
 @lru_cache(maxsize=16)
@@ -482,6 +484,9 @@ class PointExecutor:
         self.fused = not fused_missing
         self.phase1 = phase1 if self.fused else 0
         self._auto = False
+        # the fused path at more than one codeword a block counts each
+        # call's lane trips (its codewords' block trips, summed on the card)
+        self._lane_trips = False
         self.last_probe: dict = {}
         self._two_phase_choice: dict[float, bool] = {}
         self._overhead_us = None
@@ -505,6 +510,7 @@ class PointExecutor:
         self._mc_full = MCDecoder(code.qc, info_pos, self.max_iterations,
                                   variant, **mc_kw)
         self.lanes = self._mc_full.lanes
+        self._lane_trips = self.lanes > 1
         if self.phase1:
             self._mc1 = MCDecoder(code.qc, info_pos, self.phase1, variant,
                                   emit_llr=True, **mc_kw)
@@ -576,25 +582,30 @@ class PointExecutor:
         from ``b0`` at phase-1 split ``p1`` (0 = single pass)."""
         if not p1:
             return self._mc_full(wT, consts, seeds=seeds, raw=raw, b0=b0)
-        err1, ok1, conv1, norm1, it1, llrT = self._mc1(wT, consts, seeds=seeds,
-                                                       raw=raw, b0=b0)
-        # compact unconverged frames to the front lanes: keys 0 before 1
-        order = torch.argsort(ok1.to(torch.int32), stable=True)
-        llr_s = llrT.index_select(1, order)
-        w_s = wT.index_select(1, order)
-        done0 = ok1.index_select(0, order).to(torch.float32)
-        err2, ok2, conv2, norm2, it2 = self._llr_dec(llr_s, w_s, done0)
+        with timing.batch_span("batch.phase1"):
+            err1, ok1, conv1, norm1, it1, llrT = self._mc1(
+                wT, consts, seeds=seeds, raw=raw, b0=b0)
+        with timing.batch_span("batch.compact"):
+            # compact unconverged frames to the front lanes: keys 0 before 1
+            order = torch.argsort(ok1.to(torch.int32), stable=True)
+            llr_s = llrT.index_select(1, order)
+            w_s = wT.index_select(1, order)
+            done0 = ok1.index_select(0, order).to(torch.float32)
+        with timing.batch_span("batch.phase2"):
+            err2, ok2, conv2, norm2, it2 = self._llr_dec(llr_s, w_s, done0)
 
         def unsort(x):
             return torch.empty_like(x).index_copy_(0, order, x)
 
-        err = torch.where(ok1, err1, unsort(err2))
-        conv = torch.where(ok1, conv1, unsort(conv2))
-        norm = torch.where(ok1, norm1, unsort(norm2))
-        ok = ok1 | unsort(ok2)
-        # the trips of the two phases add (a re-decoded frame's block ran it1
-        # then it2 trips; a converged frame may inherit its phase-2 block's)
-        iters = it1 + unsort(it2)
+        with timing.batch_span("batch.merge"):
+            err = torch.where(ok1, err1, unsort(err2))
+            conv = torch.where(ok1, conv1, unsort(conv2))
+            norm = torch.where(ok1, norm1, unsort(norm2))
+            ok = ok1 | unsort(ok2)
+            # the trips of the two phases add (a re-decoded frame's block ran
+            # it1 then it2 trips; a converged frame may inherit its phase-2
+            # block's)
+            iters = it1 + unsort(it2)
         return err, ok, conv, norm, iters
 
     def _generator(self, key: int) -> torch.Generator:
@@ -814,7 +825,9 @@ class PointExecutor:
     @timing.traced("auto.probe")
     def _probe(self, key: int, consts: torch.Tensor):
         """One single-pass batch whose convergence picks the dispatch mode;
-        on the card its kernel time prices a block trip."""
+        on the card its kernel time prices a block trip. Its span carries
+        the choice (``split``), the block's ``lanes`` and the trip model's
+        terms (:meth:`_decide_two_phase`), all host values."""
         cuda = self.device.type == "cuda"
         if cuda:
             t0 = torch.cuda.Event(enable_timing=True)
@@ -834,7 +847,10 @@ class PointExecutor:
             m = two_phase_trip_model(conv, okv, self.phase1,
                                      self.max_iterations, lanes=self.lanes)
             trip_us = batch_us / max(m["single"], 1e-9)
-        return stats, iters, self._decide_two_phase(conv, okv, trip_us)
+        use2 = self._decide_two_phase(conv, okv, trip_us)
+        timing.annotate(lanes=self.lanes, split=int(use2),
+                        **{k: self.last_probe[k] for k in PROBE_TERMS})
+        return stats, iters, use2
 
     def run_point(self, snr_db: float, blocks: int, base_key: int | None = None,
                   point_index: int = 0, *, start_batch: int = 0) -> PointStats:
@@ -843,13 +859,20 @@ class PointExecutor:
         Batch ``i`` of the point draws from ``derive_key(point key, i)``, so
         ``run_point(s, a + b)`` equals ``run_point(s, a)`` followed by
         ``run_point(s, b, start_batch=a // batch)`` when ``a`` is a whole
-        number of batches."""
+        number of batches.
+
+        Counters on the unit's root span: ``batches``, ``frames``,
+        ``fetches``; ``split_batches`` (the batches run as a split) where a
+        split is possible; ``lane_trips`` (every codeword's block trips,
+        summed on the card and read by the flush's fetch) where a block
+        holds more than one codeword."""
         with timing.span("run_point", snr=snr_db):
             consts = self.consts(snr_db)
             key_point = derive_key(
                 self.opts.seed if base_key is None else base_key, point_index)
             B = self.batch
-            acc = torch.zeros(8, dtype=torch.float64, device=self.device)
+            acc = torch.zeros(9 if self._lane_trips else 8,
+                              dtype=torch.float64, device=self.device)
             stats = PointStats()
             remaining = blocks
             batch_idx = start_batch
@@ -862,6 +885,8 @@ class PointExecutor:
                     acc[:7] += packed[:7].to(torch.float64)
                     acc[7] += packed[7:8].view(torch.float32)[0].to(
                         torch.float64)
+                    if self._lane_trips:  # this rank's rows below take
+                        acc[8] += it[:max(take - self._rows[0], 0)].sum()
                 remaining -= take
                 batch_idx += 1
 
@@ -878,14 +903,20 @@ class PointExecutor:
                     stats.add(BlockCounters(*(int(x) for x in v[:4]),
                                             float(v[7]), int(v[4]), int(v[5])))
                     self.total_iters_run += int(v[6])
+                    if self._lane_trips:
+                        timing.count("lane_trips", int(v[8]))
                 timing.count("fetches", 2 if self._sharded else 1)
 
             def batches(count: int) -> None:
+                nonlocal split
                 for _ in range(count):
                     take = min(remaining, B)
                     add(*self.step(derive_key(key_point, batch_idx), consts,
                                    p1), take)
+                if p1:
+                    split += count
 
+            split = 0  # batches run as a split
             p1 = self.phase1
             if self._auto and remaining > 0:
                 use2 = self._two_phase_choice.get(snr_db)
@@ -919,6 +950,8 @@ class PointExecutor:
                     flush()
             timing.count("batches", batch_idx - start_batch)
             timing.count("frames", blocks - remaining)
+            if self.phase1:
+                timing.count("split_batches", split)
             return stats
 
 

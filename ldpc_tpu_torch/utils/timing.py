@@ -5,9 +5,10 @@ A span is one stretch of host time at a layer boundary: its name, an id, the
 id of the span open around it (None for a root), its unit (the root's id:
 every span of one ``run_point`` call or one ``run_simulation`` sweep shares
 it), its start and end on ``time.perf_counter_ns`` and a few attributes.
-Counters (batches, frames, host fetches, probes, overhead measures) are kept
-per unit, on the root span's attributes. Finished spans go to a ring of
-:data:`RING` spans, so a long run cannot grow without limit.
+Counters (batches, frames, host fetches, probes, overhead measures, split
+batches, lane trips) are kept per unit, on the root span's attributes;
+:func:`annotate` sets attributes of the innermost open span. Finished spans
+go to a ring of :data:`RING` spans, so a long run cannot grow without limit.
 
 Two tiers:
 
@@ -124,6 +125,13 @@ class Recorder:
             a = stack[0].attrs
             a[name] = a.get(name, 0) + n
 
+    def annotate(self, **attrs) -> None:
+        """Sets attributes of the innermost open span (nothing when no span
+        is open)."""
+        stack = self._stack()
+        if stack:
+            stack[-1].attrs.update(attrs)
+
     def full(self) -> bool:
         """Whether the ring may have dropped its oldest spans."""
         return len(self.spans) == self.spans.maxlen
@@ -166,6 +174,10 @@ def batch_span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     RECORDER.count(name, n)
+
+
+def annotate(**attrs) -> None:
+    RECORDER.annotate(**attrs)
 
 
 @contextlib.contextmanager

@@ -12,7 +12,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ldpc_tpu_torch.sim.config import SimOptions
-from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
+from ldpc_tpu_torch.sim.runner import (
+    PointExecutor,
+    derive_key,
+    load_code,
+    run_simulation,
+)
 from ldpc_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
@@ -98,8 +103,13 @@ def test_per_batch_tier_is_off_without_a_profiler(rec):
     root, unit = _unit(rec, "run_point")
     assert not any(timing.is_batch(s) for s in rec.spans)
     assert sorted(s.name for s in unit) == ["flush", "run_point"]
+    # n=32 decodes 8 codewords a block: the call counts their block trips
+    key = derive_key(5, 0)
+    trips = sum(int(ex.step(derive_key(key, i), ex.consts(3.0))[1].sum())
+                for i in range(2))
+    assert ex.lanes == 8
     assert root.attrs == {"snr": 3.0, "fetches": 1, "batches": 2,
-                          "frames": 2 * B}
+                          "frames": 2 * B, "lane_trips": trips}
     with timing.batch_spans():
         assert timing.batch_span("batch.draw") is not timing._NULL
         ex.run_point(3.0, 2 * B)
