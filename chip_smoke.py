@@ -13,10 +13,11 @@ Phases:
    started together: K1, K2 and K3 one source each over
    ``decode_group.cuh``, and the roofline probes) and print the build time;
    then one line with the registers, barriers and spill bytes ``ptxas``
-   reports for each of the 72 decode-kernel instantiations (K1, K2 and K3
+   reports for each of the 78 decode-kernel instantiations (K1, K2 and K3
    at row degrees 8 / 16 / 32 x layered / flooding x with / without the
-   flip metric x f32 / int8 E), failing if a DMAX=8 instantiation spills or
-   takes more than 80 registers.
+   flip metric x f32 / int8 E, and K1's refill at the three row degrees x
+   f32 / int8 E), failing if a DMAX=8 instantiation spills or takes more
+   than 80 registers.
 3. Hold each kernel against its plain version on the card, at the main
    path's shapes (WiMAX (1152, 576), 4096 frames, paired layers, a syndrome
    check every two sweeps), for normalized min-sum and SPA:
@@ -40,6 +41,13 @@ Phases:
    with and without the flip metric (the flip metric equal too), 4
    codewords sharing a warp, n=4608 and n=9216; int8 E on multi-diagonal and paired layers and under
    flooding; a [T, D] and a [T] alpha schedule.
+   3b. K1's refill (codewords sharing a warp, one pass of the layered
+   schedule; ``phase_refill``): CCSDS n=128 (2 codewords a warp) and n=32
+   (8), SPA and normalized min-sum, 1.5 and 3.0 dB, injected words and
+   Philox, at a batch within one wave and one over the card's grid and no
+   multiple of its lane groups: against the plain version and against the
+   same decoder launched block per group (``hold_refill``); then the cell's K1 timed at 131,072 frames, refill
+   against block per group, with its bound.
 4. The main path: ``PointExecutor`` at the settings of the headline bench
    (layered SPA, 12 iterations, paired, check every 2) through
    ``run_point(2.0, ...)`` for 64 batches of 4096 frames, twice: with
@@ -356,7 +364,7 @@ def compare(name: str, variant: str, kern, plain, bar_note: str) -> float:
     if variant == "spa":
         if frac < 0.99:
             fail(f"{name} spa agrees on {frac:.4f} of frames (< 0.99)")
-    elif frac != 1.0:
+    elif not bool(same.all()):
         bad = (~same).nonzero().flatten()[:10].tolist()
         fail(f"{name} {variant} differs from its plain version at frames {bad}")
     return gap
@@ -536,6 +544,166 @@ def phase_coverage(dev) -> float:
     return worst
 
 
+# K1's refill (codewords sharing a warp, one pass of the layered schedule):
+# the codes (2 and 8 codewords a warp), variants and Eb/N0 points held, and
+# the batches it is timed at: within one wave of blocks at both codes but
+# n=128 at 8192, and the cell's
+REFILL_CODES = ("builtin:CCSDS_ldpc_n128_k64.alist.txt", CCSDS32)
+REFILL_VARIANTS = ("spa", "normalized_minsum")
+REFILL_SNRS = (1.5, 3.0)
+REFILL_TIME_BATCHES = (4096, 8192, 131072)
+
+
+def hold_refill(tag: str, mc, block, wT, consts, **noise) -> dict:
+    """K1's call of ``mc`` against ``block``, the same decoder launched
+    block per group, and against its plain version (the bars of
+    :func:`compare`), on the same inputs. Within one wave of blocks the
+    call does not refill: all five outputs equal the block launch's, the
+    idle word left at 0. Over it, ``iters`` are each codeword's own trips
+    against the plain version, and against the block launch: err / ok / conv / norm equal bit for bit; ``iters``
+    equal to the own trips that ok and conv give (so their sums are equal),
+    and the block launch's ``iters`` their largest over each block; the
+    idle word at most the grid's lane groups x the budget. Returns the
+    launch's grid, refills, idle word and lane trips."""
+    import torch
+
+    from ldpc_tpu_torch.ops.decode_loop import block_max_trips
+
+    B, dev = wT.shape[1], wT.device
+    idle = torch.zeros(1, dtype=torch.float64, device=dev)
+    kern = mc(wT, consts, idle=idle, **noise)
+    blk = block(wT, consts, **noise)
+    sync()
+    refills = mc.refills(B, dev)
+    names = ("err", "ok", "conv", "norm", "iters")[:5 if refills == 0 else 4]
+    for name, a, b in zip(names, kern, blk):
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero().flatten()[:10].tolist()
+            fail(f"{tag}: {name} of the refill differs from the block "
+                 f"launch's at frames {bad}")
+    compare(f"{tag} against plain", mc.variant, kern,
+            mc.plain(wT, consts, **noise),
+            "own trips" if refills else "block trips")
+    if refills == 0:
+        if float(idle.item()) != 0:
+            fail(f"{tag}: a call within one wave added {idle.item()} idle")
+        log(f"  {tag}: within one wave, block per group")
+        return {"grid": 0, "refills": 0, "idle": 0.0,
+                "lane_trips": int(blk[4].sum())}
+    own = torch.where(kern[1], kern[2] + 1, mc.max_iterations)
+    if not torch.equal(kern[4].to(own.dtype), own):
+        fail(f"{tag}: iters are not each codeword's own trips")
+    want = block_max_trips(kern[1], kern[2], mc.lanes, mc.max_iterations)
+    if not torch.equal(blk[4].to(want.dtype), want):
+        fail(f"{tag}: the block launch's iters are not its codewords' largest")
+    grid, w = mc.grid(B, dev), float(idle.item())
+    lanes_trips = int(own.sum()) + w
+    if not (0 <= w <= grid * mc.lanes * mc.max_iterations and w == int(w)):
+        fail(f"{tag}: idle word {w} outside [0, {grid} x {mc.lanes} x "
+             f"{mc.max_iterations}]")
+    log(f"  {tag}: grid {grid} x {mc.lanes} lane groups, refills "
+        f"{refills}, own trips {int(own.sum())}, idle {w:g}, block "
+        f"launch's lane trips {int(blk[4].sum())}")
+    return {"grid": grid, "refills": refills, "idle": w,
+            "lane_trips": lanes_trips}
+
+
+def phase_refill(dev, smi: str, peak: float) -> dict:
+    """K1's refill held (:func:`hold_refill`) for each of ``REFILL_CODES`` x
+    ``REFILL_VARIANTS`` x ``REFILL_SNRS``, with injected words and with
+    Philox, at a batch within one wave (1001 frames: an odd batch, so one
+    lane group never holds a codeword) and at a batch over the card's grid
+    that is no multiple of its lane groups (2 grids' lane groups + 7).
+    Then K1 (SPA-12, a check every 2 sweeps, Philox, 3.0 dB) timed as the
+    call chooses and block per group, in turns, at both codes and
+    ``REFILL_TIME_BATCHES`` (the cell's: CCSDS (128, 64) at 131,072
+    frames), each with its bound. Returns the timings by code and batch."""
+    import numpy as np
+    import torch
+
+    from ldpc_tpu_torch.analysis.roofline import (
+        channel_census,
+        decode_work,
+        lane_sweeps,
+    )
+    from ldpc_tpu_torch.ops.channel import ChannelParams
+    from ldpc_tpu_torch.ops.encode import make_encoder_T
+    from ldpc_tpu_torch.ops.mc_kernels import DRAWS_PER_BIT, MCDecoder
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    gen = np.random.default_rng(3)
+    seeds = (0x6A09E667, 0xBB67AE85)
+    for name in REFILL_CODES:
+        code = load_code(name)
+        info = code.standard_encode_spec.info_pos("orig")
+        enc = make_encoder_T(code.standard_encode_spec, "orig", dev)
+        for variant in REFILL_VARIANTS:
+            mc = MCDecoder(code.qc, info, 12, variant, check_every=2)
+            block = MCDecoder(code.qc, info, 12, variant, check_every=2)
+            block.refill = False
+            if not mc.refill:
+                fail(f"{code.name} {variant}: the one-pass K1 does not refill")
+            full = mc.grid(1 << 30, dev)
+            for snr in REFILL_SNRS:
+                consts = ChannelParams(mode=1, modulation=1, speed=code.rate,
+                                       snr_db=snr,
+                                       noise_model="exact").consts(dev)
+                for B in (1001, 2 * full * mc.lanes + 7):
+                    u = torch.from_numpy(gen.integers(
+                        0, 2, (B, code.k), dtype=np.uint8)).to(dev)
+                    wT = enc(u)
+                    raw = torch.from_numpy(gen.integers(
+                        0, 2**32, (DRAWS_PER_BIT[1], code.n, B),
+                        dtype=np.uint32).view(np.int32)).to(dev)
+                    for src, noise in (("raw", dict(raw=raw)),
+                                       ("philox", dict(seeds=seeds))):
+                        hold_refill(f"{code.name} {variant} {snr} dB B={B} "
+                                    f"{src}", mc, block, wT, consts, **noise)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timed = {}
+    for name in REFILL_CODES:
+        code = load_code(name)
+        info = code.standard_encode_spec.info_pos("orig")
+        mc = MCDecoder(code.qc, info, 12, "spa", check_every=2)
+        block = MCDecoder(code.qc, info, 12, "spa", check_every=2)
+        block.refill = False
+        for B in REFILL_TIME_BATCHES:
+            u = torch.from_numpy(gen.integers(0, 2, (B, code.k),
+                                              dtype=np.uint8)).to(dev)
+            wT = make_encoder_T(code.standard_encode_spec, "orig", dev)(u)
+            consts = ChannelParams(mode=1, modulation=1, speed=code.rate,
+                                   snr_db=3.0,
+                                   noise_model="exact").consts(dev)
+            held = hold_refill(f"{code.name} spa 3.0 dB B={B} philox", mc,
+                               block, wT, consts, seeds=seeds)
+            t = {"call": [], "block": []}
+            for turn in ("call", "block", "block", "call"):
+                dec = mc if turn == "call" else block
+                t[turn].append(time_ms(lambda: dec(wT, consts, seeds=seeds),
+                                       reps=max(20, 2_000_000 // B)))
+            res = {k: float(np.mean(v)) for k, v in t.items()}
+            out = mc(wT, consts, seeds=seeds)
+            sw = lane_sweeps(out[1].cpu().numpy(), out[2].cpu().numpy(), 12)
+            ops = decode_work(code.qc, "spa", "layered", sweeps=sw,
+                              check_every=2) \
+                + B * channel_census(code.qc).total()
+            bound, by = bound_ms(ops, 4 * code.n * B + 32 + 17 * B, peak)
+            log(f"K1 timing ({code.name}, spa-12 ce2, 3.0 dB, B={B}, "
+                f"Philox; {smi}): as the call chooses ("
+                f"{'refill' if held['refills'] else 'block per group'}) "
+                f"{t['call']} ms, block per group {t['block']} ms (means "
+                f"{res['call']:.5f} / {res['block']:.5f}, "
+                f"{100 * (res['call'] / res['block'] - 1):+.2f}%); bound "
+                f"{bound:.5f} ms by {by} ({ops:.6g} census ops, "
+                f"{int(sw.sum())} own sweeps); grid {held['grid']} blocks "
+                f"({mc.blocks_per_sm(dev)} blocks/SM block per group, "
+                f"{held['grid'] // sms} refill), refills {held['refills']}, "
+                f"idle {held['idle']:g} of {held['lane_trips']:g} lane trips")
+            timed[code.name, B] = dict(res, bound=bound, by=by, ops=ops)
+    return timed
+
+
 def phase_fer(batches: int) -> None:
     """FER at the headline point from two independent noise sources, for
     the paired and the serial layer order, single pass: ``philox`` is the
@@ -583,7 +751,8 @@ DECODE_LIBRARIES = ("mc_decoder", "llr_decoder", "qc_decoder")
 
 def phase_ptxas() -> dict:
     """Registers, barriers and spill bytes of every decode-kernel
-    instantiation (K1, K2, K3: <DMAX, flooding, flip metric, int8 E>), from
+    instantiation (K1, K2, K3: <DMAX, flooding, flip metric, int8 E>; K1
+    also <DMAX, 0, 0, int8 E, refill>), from
     the builds' ``ptxas -v``; fails if a DMAX=8 one spills or takes more
     than 80 registers."""
     from ldpc_tpu_torch.ops import build
@@ -598,9 +767,10 @@ def phase_ptxas() -> dict:
         f"barriers, spill stores {rep[k].get('spill_stores')} B, loads "
         f"{rep[k].get('spill_loads')} B, stack {rep[k].get('stack')} B"
         for k in decode))
-    # K1, K2, K3 x DMAX 8 / 16 / 32 x flooding x flip metric x int8 E
-    if len(decode) != 72:
-        fail(f"expected 72 decode-kernel instantiations in the ptxas output, "
+    # K1, K2, K3 x DMAX 8 / 16 / 32 x flooding x flip metric x int8 E, and
+    # K1's refill x DMAX x int8 E
+    if len(decode) != 78:
+        fail(f"expected 78 decode-kernel instantiations in the ptxas output, "
              f"found {len(decode)}: {decode}")
     for k in decode:
         if k.split("<")[1].startswith("8,") and (
@@ -1867,7 +2037,7 @@ FLOOR = dict(matrix="builtin:wimax_576_0.5.alist.txt", iterations=12,
 PAR_SNRS = (2.0, 2.25, 2.5, 2.75)
 PAR_BLOCKS = 64 * BATCH  # a point's cap; --target-errors 100 stops it first
 RANK_TIMEOUT_S = 300
-NO_OFFSET = ("const unsigned cw = cw0 + (unsigned)b;",
+NO_OFFSET = ("const unsigned cw = C.cw0 + (unsigned)b;",
              "const unsigned cw = (unsigned)b;")
 
 
@@ -3166,7 +3336,6 @@ def main(argv=None) -> int:
     peak = issue_peak_ops_per_s()
     log(f"issue peak {peak:.6g} op/s (one f32 instruction per lane per clock; "
         f"{smi})")
-
     # ---- 3. kernels against their plain versions ----
     code = load_code("builtin:wimax_1152_0.5.alist.txt")
     spec = code.standard_encode_spec
@@ -3195,6 +3364,8 @@ def main(argv=None) -> int:
         "and Philox):")
     cover_err = phase_coverage(dev)
     log(f"  largest error over the other configurations: {cover_err:g}")
+    log("K1's refill (codewords sharing a warp, one pass):")
+    phase_refill(dev, smi, peak)
 
     # ---- 4. the main path: as 'auto' chooses, then with the split forced ----
     launches = {"mc_decoder": 0, "llr_decoder": 0}

@@ -55,6 +55,7 @@ import torch
 
 from ldpc_tpu_torch.models.qc import QCLayout
 from ldpc_tpu_torch.ops.channel import ChannelParams
+from ldpc_tpu_torch.ops.decode_loop import block_max_trips
 from ldpc_tpu_torch.ops.encode import make_encoder_T, random_info_bits
 from ldpc_tpu_torch.ops.mc_kernels import MCDecoder
 from ldpc_tpu_torch.ops.rate_kernels import (
@@ -635,7 +636,9 @@ def measure_tile_trips(code, opts, snr_db: float, *, batches: int = 8,
     ``(mean_block_iters, trip_model)``. The kernel iterates each block of
     ``MCDecoder.lanes`` codewords until all of them pass the syndrome check,
     so the work unit is the block: its ``iters`` output is sampled once per
-    block. The trip model (``sim.runner.two_phase_trip_model`` with
+    block (where the kernel refills, ``iters`` are each codeword's own
+    trips, and a block's are their largest, ``block_max_trips``). The trip
+    model (``sim.runner.two_phase_trip_model`` with
     ``lanes=dec.lanes``, averaged over the batches, plus ``lanes``)
     reconstructs both dispatch modes' block trips from the per-frame
     convergence, so its ``single`` entry cross-checks the readback.
@@ -677,6 +680,8 @@ def measure_tile_trips(code, opts, snr_db: float, *, batches: int = 8,
         s = derive_key(key, 1)
         _, ok, conv, _, iters = dec(encode_T(u), consts,
                                     seeds=(s & 0xFFFFFFFF, s >> 32))
+        if dec.refills(B, dev):
+            iters = block_max_trips(ok, conv, dec.lanes, opts.iterations)
         block_iters.append(float(iters[::dec.lanes].to(torch.float32).mean()))
         models.append(two_phase_trip_model(
             conv.cpu().numpy(), ok.cpu().numpy(), phase1, opts.iterations,

@@ -35,6 +35,10 @@
 //      serial layers), several resident per SM, so a converged codeword frees
 //      its slot for the next block at once. `iters` is the block's trips,
 //      the max over its codewords (a codeword's own trips at one per block).
+//      K1's one pass at codewords sharing a warp, over more than one wave of
+//      blocks, instead refills a stopped codeword's lanes with the next
+//      codeword (the Refill hook of decode_group, mc_decoder.cu), and
+//      `iters` is a codeword's own trips.
 //   2. No spills. __launch_bounds__(768, 1), the largest block any plan
 //      launches, gives 80 registers a thread; the leave-one-out combine
 //      keeps its suffixes and one running prefix (2 x DMAX values, not 4),
@@ -402,6 +406,12 @@ __device__ __forceinline__ void flood_posterior(const Loop& P, float* Lc,
   }
 }
 
+// The refill hook of decode_group, off: the block's codewords are its own
+// until they stop (K1's refill is K1Refill in mc_decoder.cu).
+struct NoRefill {
+  static constexpr bool REFILL = false;
+};
+
 // make_decode_loop (spa_pallas.py:176-574), layered or (FLOOD) flooding, in
 // place on the block's L [cpg][Ls] and E [cpg][e_slots * Z] (D: the
 // multi-diagonal deltas, [cpg][R * DMAX * Z]; X: flooding's channel LLRs,
@@ -413,9 +423,16 @@ __device__ __forceinline__ void flood_posterior(const Loop& P, float* Lc,
 // same barrier reduction or warp vote on every thread). NORM counts the flip
 // metric per check window. Each codeword's leader then writes s_done /
 // s_conv (/ s_norm) and folds its trips into s_iters (their max).
-template <int DMAX, bool FLOOD, bool NORM, bool Q8, bool XRO>
+//
+// Where Refill::REFILL (layered, codewords sharing the warp, no flip
+// metric), each codeword's lane group keeps its own sweep count and budget,
+// and at each check window's end, after the warp vote, rf->window_end
+// finishes the codewords that stopped (converged or spent their budget) and
+// gives their lanes the next codeword, or none; the warp runs while any of
+// its lane groups holds one, and writes nothing to s_*.
+template <int DMAX, bool FLOOD, bool NORM, bool Q8, bool XRO, class Refill = NoRefill>
 __device__ void decode_group(const Loop& P, float* L, typename EStore<Q8>::T* E, float* D,
-                             const float* X, int b0) {
+                             const float* X, int b0, Refill* rf = nullptr) {
   using ES = EStore<Q8>;
   using ET = typename ES::T;
   const int Z = P.Z, R = P.R, RZ = R * Z, cpg = P.cpg, n = P.n;
@@ -428,7 +445,8 @@ __device__ void decode_group(const Loop& P, float* L, typename EStore<Q8>::T* E,
   bool done = (cpg > 1 && !T.on) ? true : s_done[T.c] != 0;
   int conv = -1, trips = 0, it = 0;
   float nrm = 0.0f;
-  while (it < P.max_it && (cpg == 1 ? !done : __any_sync(0xffffffffu, !done))) {
+  while ((Refill::REFILL || it < P.max_it) &&
+         (cpg == 1 ? !done : __any_sync(0xffffffffu, !done))) {
     // `active` is fixed for the whole check window (spa_pallas.py:527-529)
     const bool live = !done, active = T.on && live;
     for (int step = 0; step < P.check_every; ++step) {
@@ -557,8 +575,17 @@ __device__ void decode_group(const Loop& P, float* L, typename EStore<Q8>::T* E,
     }
     it += P.check_every;
     if (live) trips = it;
+    if constexpr (Refill::REFILL) {
+      const bool stop = live && (done || it >= P.max_it);
+      const bool next = rf->window_end(P, T, Lc, Ec, live, stop, done, conv, it);
+      if (stop) {
+        done = !next;
+        conv = -1;
+        it = 0;
+      }
+    }
   }
-  if (T.on && T.rz == 0) {
+  if (!Refill::REFILL && T.on && T.rz == 0) {
     s_done[T.c] = done ? 1 : 0;
     s_conv[T.c] = conv;
     if (NORM) s_norm[T.c] = nrm;
@@ -755,16 +782,17 @@ bool bad_plan(const Loop& P, int dmax, int smem) {
          (dmax != 8 && dmax != 16 && dmax != 32) || smem != (long long)smem_bytes(P, dmax);
 }
 
-// Launch `kernel` over the plan's blocks with the kernel's arguments `args`
-// (pointers to each, P first).
+// Launch `kernel` over the plan's blocks, or over `blocks` blocks where
+// given (K1's refill), with the kernel's arguments `args` (pointers to
+// each, P first).
 cudaError_t launch(const void* kernel, const Loop& P, int dmax, int device, void* stream,
-                   void** args) {
+                   void** args, int blocks = 0) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const size_t smem = smem_bytes(P, dmax);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((P.B + P.cpg - 1) / P.cpg), block(P.tpg);
+  const dim3 grid(blocks ? blocks : (P.B + P.cpg - 1) / P.cpg), block(P.tpg);
   e = cudaLaunchKernel(kernel, grid, block, args, smem, static_cast<cudaStream_t>(stream));
   return e != cudaSuccess ? e : cudaGetLastError();
 }

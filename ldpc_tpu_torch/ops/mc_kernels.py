@@ -32,7 +32,12 @@ the time each point bought):
    leave-one-out combine that holds 2 x DMAX values;
 3. precomputed gathers: :func:`gather_offsets`, staged in shared memory;
 4. lane-fastest device-memory loads and stores, so a warp reads adjacent
-   codewords of one row.
+   codewords of one row;
+5. K1's refill where codewords share a warp, K1 is one pass and the batch
+   is more than one wave of resident blocks (:meth:`MCDecoder.refills`): a
+   persistent grid whose lane groups each take the next codeword once
+   theirs stops, so a warp's lanes no longer wait for the later of its
+   codewords.
 
 The posteriors L and extrinsics E of a block's codewords stay in shared
 memory for the whole decode; a flooding decode restarts every sweep from the
@@ -67,6 +72,7 @@ from ldpc_tpu_torch.ops.channel import CONSTS_ORDER
 from ldpc_tpu_torch.ops.decode_loop import (
     DecodeLoop,
     QCTables,
+    block_max_trips,
     build_tables,
     check_msg_store,
     normalize_variant,
@@ -238,6 +244,7 @@ MC_KERNEL = Kernel(
      _P, _P]  # xbuf prior
     + LOOP_ARGS
     + [_I, _F, _I, _U, _U, _U, _I,  # mode amp noise_input key0 key1 b0 skip
+       _I, _P, _P,  # the refill: grid ticket idle
        _I, _P],  # device stream
 )
 LLR_KERNEL = Kernel(
@@ -458,23 +465,37 @@ LIBRARY = {K_MC: "mc_decoder", K_LLR: "llr_decoder", K_QC: "qc_decoder"}
 
 
 def blocks_per_sm(kind: int, tables: QCTables, plan: FusedPlan, device,
-                  norm: bool = False) -> int:
+                  norm: bool = False, refill: bool = False) -> int:
     """Resident blocks per SM of K1 (``kind`` :data:`K_MC`), K2
     (:data:`K_LLR`) or K3 (:data:`K_QC`) at ``plan``'s launch shape and
-    stores on the card (``norm``: the flip metric compiled in;
+    stores on the card (``norm``: the flip metric compiled in; ``refill``:
+    K1's refill instantiation, :attr:`MCDecoder.refill`;
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from ldpc_tpu_torch.ops.build import load
 
-    fn = load(LIBRARY[kind]).decoder_occupancy
-    fn.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
-    fn.restype = _I
+    lib = load(LIBRARY[kind])
     blocks = _I(0)
+    if refill:
+        fn = lib.refill_occupancy
+        fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        args = (kernel_dmax(tables), int(plan.int8), plan.threads, plan.smem)
+    else:
+        fn = lib.decoder_occupancy
+        fn.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+        args = (kernel_dmax(tables), int(plan.flood), int(norm),
+                int(plan.int8), plan.threads, plan.smem)
+    fn.restype = _I
     with torch.cuda.device(device):
-        rc = fn(kernel_dmax(tables), int(plan.flood), int(norm),
-                int(plan.int8), plan.threads, plan.smem, ctypes.byref(blocks))
+        rc = fn(*args, ctypes.byref(blocks))
     if rc:
-        raise RuntimeError(f"decoder_occupancy failed (cudaError {rc})")
+        raise RuntimeError(f"{fn.__name__} failed (cudaError {rc})")
     return blocks.value
+
+
+def refill_grid(B: int, lanes: int, resident: int) -> int:
+    """Blocks of K1's refill launch over ``B`` codewords: one a block of
+    ``lanes`` codewords, at most ``resident`` (the card's resident blocks)."""
+    return min(-(-B // lanes), resident)
 
 
 class DecodeConfig:
@@ -628,9 +649,26 @@ class MCDecoder(_FusedBase):
     convergence or -1; ``norm`` is the normalized-LLR flip metric with
     ``track_norm``, else zeros; ``iters`` is the trip count of the lane's
     block (the largest of its codewords', its own at one codeword per
-    block). ``emit_llr`` appends the channel LLRs, f32 [n, B] in the
-    log(p0/p1) domain. Layered or flooding, scalar or scheduled alpha, f32
-    or int8 E, as :class:`DecodeConfig` takes them.
+    block), or, where the call refills, the codeword's own trips.
+    ``emit_llr`` appends the channel LLRs, f32 [n, B] in the log(p0/p1)
+    domain. Layered or flooding, scalar or scheduled alpha, f32 or int8 E,
+    as :class:`DecodeConfig` takes them.
+
+    The refill (:attr:`refill`, from the plan's shape and the options:
+    codewords sharing a warp, the layered schedule, no LLRs emitted, no
+    flip metric) engages in a call without ``skip`` whose codewords
+    outnumber the lane groups of the card's resident blocks, so that
+    :meth:`refills` is above 0; within one wave the block per group is as
+    fast. The kernel then runs :meth:`grid` persistent blocks, and each
+    codeword's lane group, once its codeword stops, takes the next one, so
+    no lane runs for a codeword that has stopped while the launch has
+    codewords left. ``idle``, a float64 [1] tensor on the call's device,
+    gets the launch's tail added: the sweeps its lane groups spent holding
+    no codeword while their warp ran. Off the card there are no resident
+    blocks to outnumber, and the plain version refills only where
+    :meth:`grid` is given fewer blocks than the batch fills; its tail is
+    then that of one codeword a lane group: each block's largest trips over
+    its lane groups, less each codeword's own.
     """
 
     kind = K_MC
@@ -652,16 +690,45 @@ class MCDecoder(_FusedBase):
         self.mode, self.modulation = mode, modulation
         self.amp = 1.0 if modulation == 1 else 0.7
         self.emit_llr = emit_llr
+        self.refill = (self.lanes > 1 and not self.flood and not emit_llr
+                       and not self.track_norm)
+        self._resident: dict[str, int] = {}
 
-    def __call__(self, wT, consts, seeds=None, raw=None, skip=0, b0=0):
+    def grid(self, B: int, device) -> int:
+        """Blocks of a refill launch over ``B`` codewords on ``device``:
+        :func:`refill_grid` at the card's resident blocks of the refill
+        instantiation (blocks per SM x SMs); one codeword a lane group off
+        the card."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return refill_grid(B, self.lanes, B)
+        key = str(device)
+        if key not in self._resident:
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            self._resident[key] = sms * blocks_per_sm(
+                K_MC, self.tables, self.plan, device, refill=True)
+        return refill_grid(B, self.lanes, self._resident[key])
+
+    def refills(self, B: int, device) -> int:
+        """Codewords a call over ``B`` codewords (no ``skip``) loads into
+        a lane group after its first; the call refills where this is above
+        0."""
+        if not self.refill or B == 0:
+            return 0
+        return max(B - self.lanes * self.grid(B, device), 0)
+
+    def __call__(self, wT, consts, seeds=None, raw=None, skip=0, b0=0,
+                 idle=None):
         if wT.device.type == "cpu":
             return self.plain(wT, consts, seeds=seeds, raw=raw, skip=skip,
-                              b0=b0)
+                              b0=b0, idle=idle)
         if wT.device.type != "cuda":
             raise ValueError(f"no kernel for device {wT.device}")
-        return self._launch(wT, consts, seeds, raw, skip, b0)
+        return self._launch(wT, consts, seeds, raw, skip, b0, idle)
 
-    def plain(self, wT, consts, seeds=None, raw=None, skip=0, b0=0):
+    def plain(self, wT, consts, seeds=None, raw=None, skip=0, b0=0,
+              idle=None):
         """The kernel's arithmetic in PyTorch, on any device."""
         n, B = wT.shape
         dev = wT.device
@@ -675,10 +742,19 @@ class MCDecoder(_FusedBase):
         llr = L.clone() if self.emit_llr else None
         done0 = torch.full((B,), bool(skip), dtype=torch.bool, device=dev)
         done, conv, iters, norm = loop.decode(L, done0)
+        if not skip and self.refills(B, dev):
+            # each codeword's own trips; the tail: each block's largest
+            # trips, over its lane groups with a codeword or none
+            own = block_max_trips(done, conv, 1, self.max_iterations)
+            if idle is not None and B:
+                pad = -B % self.lanes
+                idle += (iters.sum() + pad * iters[-1] - own.sum()).to(
+                    idle.dtype)
+            iters = own.to(torch.int32)
         out = (self._count_errors(L, wT), done, conv, norm, iters)
         return out + (llr,) if self.emit_llr else out
 
-    def _launch(self, wT, consts, seeds, raw, skip, b0):
+    def _launch(self, wT, consts, seeds, raw, skip, b0, idle):
         dev = wT.device
         n, B = self.qc.n, wT.shape[1]
         self._check("wT", wT, torch.float32, (n, B), dev)
@@ -698,6 +774,12 @@ class MCDecoder(_FusedBase):
             return outs + (llr,) if self.emit_llr else outs
         args = self._loop_args(dev, B)
         xbuf, prior = self._buffers(B, dev)
+        grid, ticket = 0, None
+        if not skip and self.refills(B, dev):
+            grid = self.grid(B, dev)
+            ticket = torch.empty(1, dtype=torch.int32, device=dev)
+            if idle is not None:
+                self._check("idle", idle, torch.float64, (1,), dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             MC_KERNEL(
@@ -705,7 +787,8 @@ class MCDecoder(_FusedBase):
                 *(o.data_ptr() for o in outs), self._ptr(llr),
                 self._ptr(xbuf), self._ptr(prior), *args,
                 self.mode, self.amp, int(raw is not None), key[0], key[1],
-                int(b0) & _M32, int(bool(skip)), dev.index, stream,
+                int(b0) & _M32, int(bool(skip)), grid, self._ptr(ticket),
+                self._ptr(idle) if grid else None, dev.index, stream,
             )
         return outs + (llr,) if self.emit_llr else outs
 

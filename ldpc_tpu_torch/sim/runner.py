@@ -485,7 +485,8 @@ class PointExecutor:
         self.phase1 = phase1 if self.fused else 0
         self._auto = False
         # the fused path at more than one codeword a block counts each
-        # call's lane trips (its codewords' block trips, summed on the card)
+        # call's lane trips (its codewords' block trips, or, where K1
+        # refills, their own trips and the launch's tail idle)
         self._lane_trips = False
         self.last_probe: dict = {}
         self._two_phase_choice: dict[float, bool] = {}
@@ -577,11 +578,13 @@ class PointExecutor:
         k = _mix(key ^ 2)
         return gen, (k & 0xFFFFFFFF, k >> 32)
 
-    def _decode(self, wT, consts, seeds, raw, p1: int, b0: int = 0):
+    def _decode(self, wT, consts, seeds, raw, p1: int, b0: int = 0,
+                idle=None):
         """Per-codeword (err, ok, conv, norm, iters) of one batch's rows
         from ``b0`` at phase-1 split ``p1`` (0 = single pass)."""
         if not p1:
-            return self._mc_full(wT, consts, seeds=seeds, raw=raw, b0=b0)
+            return self._mc_full(wT, consts, seeds=seeds, raw=raw, b0=b0,
+                                 idle=idle)
         with timing.batch_span("batch.phase1"):
             err1, ok1, conv1, norm1, it1, llrT = self._mc1(
                 wT, consts, seeds=seeds, raw=raw, b0=b0)
@@ -615,9 +618,13 @@ class PointExecutor:
 
     def step(self, key: int, consts: torch.Tensor, p1: int = 0, *,
              u: torch.Tensor | None = None, raw: torch.Tensor | None = None,
-             llr: torch.Tensor | None = None):
+             llr: torch.Tensor | None = None,
+             idle: torch.Tensor | None = None):
         """One batch: ``(BlockStats, iters)`` (per-codeword trip counts on
         the fused path, the batch's ``iters_run`` on the unfused one).
+
+        ``idle`` (float64 [1] on the device) gets a single pass's tail idle
+        added where K1 refills (:class:`MCDecoder`).
 
         ``u`` (uint8 [batch, k]) replaces the batch's drawn info bits;
         ``raw`` (fused: noise words in the injected layout) and ``llr``
@@ -637,7 +644,7 @@ class PointExecutor:
             wT = self._encode_T(u[lo:hi])
         with timing.batch_span("batch.decode"):
             err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw,
-                                                      p1, lo)
+                                                      p1, lo, idle)
         if not self.opts.exact_ber:
             # reference: bits counted only when decode failed (main.py:134)
             err = torch.where(ok, 0, err).to(torch.int32)
@@ -823,17 +830,18 @@ class PointExecutor:
         return c
 
     @timing.traced("auto.probe")
-    def _probe(self, key: int, consts: torch.Tensor):
-        """One single-pass batch whose convergence picks the dispatch mode;
-        on the card its kernel time prices a block trip. Its span carries
-        the choice (``split``), the block's ``lanes`` and the trip model's
-        terms (:meth:`_decide_two_phase`), all host values."""
+    def _probe(self, key: int, consts: torch.Tensor, idle=None):
+        """One single-pass batch (``idle`` as :meth:`step` takes it) whose
+        convergence picks the dispatch mode; on the card its kernel time
+        prices a block trip. Its span carries the choice (``split``), the
+        block's ``lanes`` and the trip model's terms
+        (:meth:`_decide_two_phase`), all host values."""
         cuda = self.device.type == "cuda"
         if cuda:
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
-        stats, iters = self.step(key, consts, 0)
+        stats, iters = self.step(key, consts, 0, idle=idle)
         trip_us = None
         if cuda:
             t1.record()
@@ -863,9 +871,14 @@ class PointExecutor:
 
         Counters on the unit's root span: ``batches``, ``frames``,
         ``fetches``; ``split_batches`` (the batches run as a split) where a
-        split is possible; ``lane_trips`` (every codeword's block trips,
-        summed on the card and read by the flush's fetch) where a block
-        holds more than one codeword."""
+        split is possible; ``lane_trips`` (every sweep of every codeword's
+        lanes: its block's trips, or, where K1 refills, its own trips and
+        each launch's tail idle; summed on the card and read by the flush's
+        fetch) where a block holds more than one codeword, and ``refills``
+        (codewords a lane group loaded after its first, from each single
+        pass's grid; 0 where the batch fits one wave) where K1 can refill.
+        A partial last batch adds the trips of its counted rows only, but
+        where K1 refills, the tail idle of its whole launch."""
         with timing.span("run_point", snr=snr_db):
             consts = self.consts(snr_db)
             key_point = derive_key(
@@ -873,6 +886,7 @@ class PointExecutor:
             B = self.batch
             acc = torch.zeros(9 if self._lane_trips else 8,
                               dtype=torch.float64, device=self.device)
+            idle = acc[8:9] if self._lane_trips else None
             stats = PointStats()
             remaining = blocks
             batch_idx = start_batch
@@ -912,7 +926,7 @@ class PointExecutor:
                 for _ in range(count):
                     take = min(remaining, B)
                     add(*self.step(derive_key(key_point, batch_idx), consts,
-                                   p1), take)
+                                   p1, idle=idle), take)
                 if p1:
                     split += count
 
@@ -922,7 +936,7 @@ class PointExecutor:
                 use2 = self._two_phase_choice.get(snr_db)
                 if use2 is None:
                     s, it, use2 = self._probe(derive_key(key_point, batch_idx),
-                                              consts)
+                                              consts, idle)
                     add(s, it, min(remaining, B))
                     self._two_phase_choice[snr_db] = use2
                 self.kernel_used = self._kernel_base + (
@@ -952,6 +966,11 @@ class PointExecutor:
             timing.count("frames", blocks - remaining)
             if self.phase1:
                 timing.count("split_batches", split)
+            if self.fused and self._mc_full.refill:
+                # a launch's, in each single-pass batch
+                timing.count("refills", self._mc_full.refills(
+                    self.local_batch, self.device)
+                    * (batch_idx - start_batch - split))
             return stats
 
 

@@ -3,8 +3,10 @@
 the block plan it runs (two codewords a warp), the port held counter for
 counter against the benchmark's plain reference with and without the
 split, the spans and counters a block of two codewords adds, none of them
-at the 802.16e code's one codeword a block, and the ``lane_idle_pct``
-reader."""
+at the 802.16e code's one codeword a block, the ``lane_idle_pct`` reader,
+and K1's refill: where it engages, its grid, its idle model, its outputs
+against the block per group, and the ``refills`` and ``lane_trips``
+counters it feeds."""
 
 from __future__ import annotations
 
@@ -18,9 +20,14 @@ from benchmark.harness import unit_key
 from benchmark.program import Program
 from benchmark.reference import codes
 from benchmark.reference.sim import Reference
+from ldpc_tpu_torch.ops import mc_kernels as mk
+from ldpc_tpu_torch.ops.channel import ChannelParams
+from ldpc_tpu_torch.ops.decode_loop import block_max_trips
+from ldpc_tpu_torch.ops.encode import make_encoder_T
 from ldpc_tpu_torch.sim.config import SimOptions
 from ldpc_tpu_torch.sim.runner import (
     PointExecutor,
+    derive_key,
     load_code,
     resolve_layer_groups,
 )
@@ -226,3 +233,227 @@ def test_lane_idle_pct_reads_the_counter(monkeypatch, lane_trips, expected):
     # own sweeps a call: 270 + 90 converged + 10 x 12 = 480 of 600 trips
     assert cells.reader("lane_idle_pct")(ctx) == expected
     assert bool(notes) == (expected is not None)
+
+
+# ------------------------------------------------------------ K1's refill ----
+
+N128 = "builtin:CCSDS_ldpc_n128_k64.alist.txt"
+N32 = "builtin:CCSDS_ldpc_n32_k16.alist.txt"
+
+
+def _mc(matrix=N128, variant="spa", schedule="layered", **kw):
+    code = load_code(matrix)
+    info = code.standard_encode_spec.info_pos("orig")
+    return code, mk.MCDecoder(code.qc, info, 12, variant, schedule=schedule,
+                              check_every=2, **kw)
+
+
+def _grid(monkeypatch, dec, blocks: int):
+    """``dec``'s refill launch on ``blocks`` blocks, as on a card with that
+    many resident (the CPU has none, so it never refills of its own)."""
+    monkeypatch.setattr(dec, "grid", lambda B, device: min(
+        blocks, -(-B // dec.lanes)))
+
+
+def _inputs(code, B: int, snr_db: float = 2.0):
+    u = torch.randint(0, 2, (B, code.k), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(5))
+    wT = make_encoder_T(code.standard_encode_spec, "orig", "cpu")(u)
+    consts = ChannelParams(mode=1, modulation=1, speed=code.rate,
+                           snr_db=snr_db, noise_model="exact").consts("cpu")
+    return wT, consts
+
+
+def _tail(own: torch.Tensor, lanes: int) -> int:
+    """Sweeps the lane groups of blocks of ``lanes`` consecutive codewords
+    that took ``own`` trips spend past their own: each block's largest
+    over all its lane groups, those with no codeword too."""
+    t = own.to(torch.int64)
+    t = torch.cat([t, t.new_zeros(-len(t) % lanes)]).view(-1, lanes)
+    return int((t.amax(dim=1, keepdim=True) - t).sum())
+
+
+@pytest.mark.parametrize("matrix, schedule, options, lanes, refill", [
+    (N128, "layered", {}, 2, True),
+    (N32, "layered", {}, 8, True),
+    (N128, "layered", dict(msg_store="int8", variant="minsum"), 2, True),
+    (WIMAX, "layered", {}, 1, False),
+    (N32, "flooding", {}, 4, False),
+    (N128, "layered", dict(emit_llr=True), 2, False),
+    (N128, "layered", dict(track_norm=True, check_every=1), 2, False),
+])
+def test_the_refill_reads_the_plans_shape(monkeypatch, matrix, schedule,
+                                          options, lanes, refill):
+    """K1 can refill where codewords share a warp, under the layered
+    schedule, in one pass (no LLRs emitted, no flip metric); a split's
+    phase 1, the flip metric, flooding and one codeword a block keep the
+    block per group. It refills only a batch over one wave of blocks."""
+    code = load_code(matrix)
+    info = code.standard_encode_spec.info_pos("orig")
+    kw = dict(dict(variant="spa", check_every=2), **options)
+    dec = mk.MCDecoder(code.qc, info, 12, kw.pop("variant"),
+                       schedule=schedule, **kw)
+    assert (dec.lanes, dec.refill) == (lanes, refill)
+    assert dec.refills(64, "cpu") == 0
+    _grid(monkeypatch, dec, 3)
+    assert dec.refills(64, "cpu") == (64 - 3 * lanes if refill else 0)
+    assert dec.refills(3 * lanes, "cpu") == 0
+
+
+def test_the_executor_refills_its_single_pass_only():
+    ex = _executor(two_phase=6)
+    assert ex._mc_full.refill and not ex._mc1.refill
+    assert not _executor(matrix=WIMAX)._mc_full.refill
+
+
+@pytest.mark.parametrize("B, lanes, resident, grid", [
+    (131072, 2, 3300, 3300), (6600, 2, 3300, 3300), (6599, 2, 3300, 3300),
+    (6601, 2, 3300, 3300), (1001, 2, 3300, 501), (64, 8, 5, 5),
+    (7, 8, 5, 1), (1, 2, 3300, 1),
+])
+def test_the_refill_grid(B, lanes, resident, grid):
+    """At most the card's resident blocks, and never more blocks than the
+    batch fills; off the card, one codeword a lane group, so no refills."""
+    assert mk.refill_grid(B, lanes, resident) == grid
+    _, dec = _mc()
+    dec.lanes = lanes
+    assert dec.grid(B, "cpu") == -(-B // lanes)
+    assert dec.refills(B, "cpu") == 0
+
+
+@pytest.mark.parametrize("matrix", [N128, N32])
+@pytest.mark.parametrize("variant", ["spa", "normalized_minsum"])
+def test_one_wave_is_the_block_per_group(matrix, variant):
+    """A batch that one wave of blocks holds is decoded block per group,
+    iters as the block's trips, and adds no idle."""
+    code, dec = _mc(matrix, variant)
+    wT, consts = _inputs(code, 96)
+    idle = torch.zeros(1, dtype=torch.float64)
+    got = dec(wT, consts, seeds=(3, 4), idle=idle)
+    dec.refill = False
+    want = dec(wT, consts, seeds=(3, 4))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[4].to(torch.int64),
+                       block_max_trips(got[1], got[2], dec.lanes, 12))
+    assert float(idle) == 0
+
+
+@pytest.mark.parametrize("matrix", [N128, N32])
+@pytest.mark.parametrize("variant", ["spa", "normalized_minsum"])
+def test_the_refill_keeps_every_output_but_iters(monkeypatch, matrix,
+                                                 variant):
+    """The plain version of the refill against the block per group on the
+    same inputs: err, ok, conv and norm equal; iters each codeword's own
+    trips, whose largest over a block are the block's; the tail of one
+    codeword a lane group, so the lane trips are the block per group's; a
+    call with ``skip`` adds no idle."""
+    code, dec = _mc(matrix, variant)
+    B = 96
+    wT, consts = _inputs(code, B)
+    _grid(monkeypatch, dec, 2)
+    assert dec.refills(B, "cpu") > 0
+    idle = torch.zeros(1, dtype=torch.float64)
+    got = dec(wT, consts, seeds=(3, 4), idle=idle)
+    dec.refill = False
+    want = dec(wT, consts, seeds=(3, 4))
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    own = torch.where(got[1], got[2] + 1, 12).to(torch.int32)
+    assert torch.equal(got[4], own) and not torch.equal(got[4], want[4])
+    assert torch.equal(want[4].to(torch.int64),
+                       block_max_trips(got[1], got[2], dec.lanes, 12))
+    assert float(idle) == float(want[4].sum() - own.sum()) > 0
+    # a call with skip pre-marks every codeword done and refills nothing
+    dec.refill = True
+    skipped = dec(wT, consts, seeds=(3, 4), skip=1, idle=idle)
+    assert not skipped[4].any()
+    assert float(idle) == float(want[4].sum() - own.sum())
+
+
+@pytest.mark.parametrize("matrix", [N128, N32])
+@pytest.mark.parametrize("B", [1, 7, 95, 96])
+def test_the_plain_refill_tail(monkeypatch, matrix, B):
+    """The plain version's idle: each block's largest trips over all its
+    lane groups, a group with no codeword (a batch no multiple of the
+    lanes) too, less the codewords' own."""
+    code, dec = _mc(matrix)
+    wT, consts = _inputs(code, B, 1.5)
+    _grid(monkeypatch, dec, 0)  # no blocks: the plain refill at any batch
+    idle = torch.zeros(1, dtype=torch.float64)
+    own = dec(wT, consts, seeds=(5, 6), idle=idle)[4]
+    assert float(idle) == _tail(own, dec.lanes)
+
+
+def _refill_executor(monkeypatch, grid: int, two_phase="off"):
+    ex = _executor(two_phase=two_phase)
+    _grid(monkeypatch, ex._mc_full, grid)
+    return ex
+
+
+@pytest.mark.parametrize("two_phase", ["off", "auto"])
+def test_lane_trips_take_the_idle_word_and_refills_count(monkeypatch, rec,
+                                                         two_phase):
+    """A lane group's sweeps: its codewords' own trips plus each single
+    pass's tail (the probe's too), and a split batch's block trips;
+    ``refills`` counts the codewords loaded after a group's first, from
+    each single pass's grid."""
+    ex = _refill_executor(monkeypatch, 4, two_phase)
+    trips, single = [], []
+    step = ex.step
+
+    def recorded(key, consts, p1=0, **kw):
+        stats, iters = step(key, consts, p1, **kw)
+        trips.append(int(iters.sum()) + (0 if p1 else _tail(iters, ex.lanes)))
+        single.append(not p1)
+        return stats, iters
+
+    ex.step = recorded
+    st = ex.run_point(1.5, 3 * B)
+    root, _ = timing.units(rec.spans, "run_point")[-1]
+    assert len(trips) == 3
+    assert root.attrs["refills"] == sum(single) * (B - ex.lanes * 4)
+    assert root.attrs["lane_trips"] == sum(trips)
+    if all(single):
+        # a codeword's lanes run its own sweeps alone, past the tail
+        own = census.total_sweeps(st.blocks, st.conv_count,
+                                  st.conv_iters_sum, ex.max_iterations)
+        assert own < sum(trips)
+
+
+def test_a_step_outside_run_point_counts_nothing(monkeypatch, rec):
+    """A batch outside ``run_point`` (a discarded warm-up, a test's step)
+    opens no counter and adds its tail nowhere."""
+    ex = _refill_executor(monkeypatch, 4)
+    with timing.span("outside"):
+        _, iters = ex.step(derive_key(5, 0), ex.consts(1.5))
+    assert ex._mc_full.refills(B, "cpu") > 0 and iters.max() > 0
+    assert [s.attrs for s in rec.spans if s.name == "outside"] == [{}]
+    assert not any({"refills", "lane_trips"} & set(s.attrs)
+                   for s in rec.spans)
+
+
+def test_lane_idle_pct_reads_the_refill(monkeypatch):
+    """The reader, unchanged, takes the idle word as the lane trips beyond
+    the own sweeps: 100 x idle / (own + idle) over the traced calls."""
+    r = timing.Recorder()
+    monkeypatch.setattr(timing, "RECORDER", r)
+    ex = _refill_executor(monkeypatch, 4)
+    ex.run_point(1.5, B)  # the warm-up call, left out
+    units = []
+    with timing.batch_spans():
+        for _ in range(2):
+            st = ex.run_point(1.5, 2 * B)
+            units.append([{"frames": st.blocks,
+                           "frame_errors": st.fer_frames,
+                           "bit_errors": st.error_bits,
+                           "converged": st.conv_count,
+                           "conv_sum": st.conv_iters_sum}])
+    stretch = trace.Stretch(1.0, 0.9, [], {}, [], units=units)
+    ctx = harness.Context(cells.load(CELL), stretch, None, "cpu", True, [])
+    trips = sum(u.attrs["lane_trips"]
+                for u, _ in timing.units(r.spans, "run_point")[1:])
+    own = sum(census.total_sweeps(u[0]["frames"], u[0]["converged"],
+                                  u[0]["conv_sum"], 12) for u in units)
+    assert trips > own
+    assert cells.reader("lane_idle_pct")(ctx) == 100.0 * (trips - own) / trips

@@ -402,3 +402,13 @@ def test_chip_smoke_reads_the_committed_markdown_records():
     assert list(layered) == LAYERED_TARGETS
     assert flood["wimax_2304_0.83.alist.txt"][-3] == "229/256"
     assert layered["wimax_2304_0.83.alist.txt"][-3] == "253/256"
+
+
+def test_chip_smoke_finds_k1s_codeword_offset_line():
+    """Phase 13b builds K1 without its codeword offset by replacing the one
+    line that adds it; that line has to be in K1's source once."""
+    import chip_smoke
+
+    src = (chip_smoke.ROOT / chip_smoke.CSRC / "mc_decoder.cu").read_text()
+    assert src.count(chip_smoke.NO_OFFSET[0]) == 1
+    assert chip_smoke.NO_OFFSET[1] not in src

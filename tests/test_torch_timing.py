@@ -103,13 +103,15 @@ def test_per_batch_tier_is_off_without_a_profiler(rec):
     root, unit = _unit(rec, "run_point")
     assert not any(timing.is_batch(s) for s in rec.spans)
     assert sorted(s.name for s in unit) == ["flush", "run_point"]
-    # n=32 decodes 8 codewords a block: the call counts their block trips
+    # n=32 decodes 8 codewords a block: the call counts their block trips,
+    # and the refills of K1, which refills no batch of one wave
     key = derive_key(5, 0)
     trips = sum(int(ex.step(derive_key(key, i), ex.consts(3.0))[1].sum())
                 for i in range(2))
-    assert ex.lanes == 8
+    assert ex.lanes == 8 and ex._mc_full.refill
     assert root.attrs == {"snr": 3.0, "fetches": 1, "batches": 2,
-                          "frames": 2 * B, "lane_trips": trips}
+                          "frames": 2 * B, "lane_trips": trips,
+                          "refills": 0}
     with timing.batch_spans():
         assert timing.batch_span("batch.draw") is not timing._NULL
         ex.run_point(3.0, 2 * B)
