@@ -31,13 +31,13 @@ Weight computation never forms q directly: with n = sigma*z + D_sel,
 and the M dot products are one [B, n] x [n, M] ``torch.matmul`` (the JAX
 package computes it outside any Pallas kernel too). The fused kernels cannot
 take biased noise, so the IS step is the unfused one: the channel here and
-the decoder of the port's ``_select_decoder`` (K3 on a QC code).
+the unfused route's decoder (``runner.choose_route``; K3 on a QC code).
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ from ldpc_tpu_torch.ops.channel import (
 from ldpc_tpu_torch.ops.encode import make_encoder, random_info_bits
 from ldpc_tpu_torch.ops.metrics import block_stats
 from ldpc_tpu_torch.sim.config import SimOptions
-from ldpc_tpu_torch.sim.runner import _select_decoder, derive_key
+from ldpc_tpu_torch.sim.runner import choose_route, derive_key
 from ldpc_tpu_torch.utils.device import resolve_device
 
 
@@ -161,8 +161,9 @@ def make_is_step(code: LDPCCode, opts: SimOptions, shifts: np.ndarray,
     spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
     info_pos = np.asarray(spec.info_pos(opts.decode_graph)[: code.k],
                           np.int64)
-    decode, kernel_used = _select_decoder(
-        code, opts, info_pos, opts.iterations, dev, opts.decode_graph)
+    route = choose_route(code, replace(opts, fused="off"), dev,
+                         opts.iterations, opts.modulation, opts.interleaver)
+    decode = route.unfused_decoder(info_pos, opts.iterations)
     encode = make_encoder(spec, opts.decode_graph, dev)
 
     M, n = shifts.shape
@@ -219,7 +220,7 @@ def make_is_step(code: LDPCCode, opts: SimOptions, shifts: np.ndarray,
             return w, detected, wrong, res.est ^ w_bits.to(res.est.dtype)
         return w, detected, wrong
 
-    return step, kernel_used
+    return step, route.kernel
 
 
 def harvest_failures(code: LDPCCode, opts: SimOptions, shifts: np.ndarray,

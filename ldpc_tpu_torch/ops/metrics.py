@@ -3,8 +3,8 @@
 Counterpart of ``ldpc_tpu/ops/metrics.py:24-141``:
   * FER counts frames whose decode result != OK.
   * BER counts erroneous info bits only for failed frames unless ``exact``
-    (:func:`block_stats` on the unfused path; the runner applies the same
-    rule to the fused kernels' every-frame counts).
+    (:func:`failed_frame_errors`, which :func:`block_stats` and the fused
+    path's step both apply).
   * average convergence iterations average over converged frames only.
 """
 
@@ -15,9 +15,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# the slots of a batch's packed counters (the JAX package's order): int32
+# counts, the decode's iterations, then the f32 norm sum as its bit pattern
+SLOTS = ("blocks", "ok_blocks", "error_bits", "fer_frames", "conv_iters_sum",
+         "conv_count", "iters", "norm_llr_sum")
+_NORM = SLOTS.index("norm_llr_sum")
+
 
 class BlockCounters(NamedTuple):
-    """Summable per-batch counters (int32 / float32 scalar tensors)."""
+    """Summable per-batch counters (int32 / float32 scalar tensors; numpy
+    scalars from :func:`unpack_counters`)."""
 
     blocks: torch.Tensor
     ok_blocks: torch.Tensor
@@ -40,6 +47,14 @@ class BlockStats(NamedTuple):
     norm_llr: torch.Tensor  # f32
 
 
+def failed_frame_errors(errors: torch.Tensor, ok: torch.Tensor,
+                        exact: bool) -> torch.Tensor:
+    """Per-frame bit errors as the BER counts them: the reference counts a
+    frame's errors only when its decode failed (main.py:134), ``exact``
+    every frame's."""
+    return errors if exact else torch.where(ok, 0, errors)
+
+
 def block_stats(u: torch.Tensor, result, info_pos: torch.Tensor,
                 exact: bool = False) -> BlockStats:
     """Per-codeword stats of one decoded batch: ``u`` uint8 [B, k] the sent
@@ -47,11 +62,9 @@ def block_stats(u: torch.Tensor, result, info_pos: torch.Tensor,
     codeword positions."""
     decoded = result.est.index_select(1, info_pos)
     errs = (decoded != u.to(decoded.dtype)).sum(dim=1).to(torch.int32)
-    if not exact:
-        # reference: bits counted only when decode failed (main.py:134)
-        errs = torch.where(result.ok, torch.zeros_like(errs), errs)
-    return BlockStats(error_bits=errs, ok=result.ok,
-                      conv_iter=result.conv_iter, norm_llr=result.norm_llr)
+    return BlockStats(error_bits=failed_frame_errors(errs, result.ok, exact),
+                      ok=result.ok, conv_iter=result.conv_iter,
+                      norm_llr=result.norm_llr)
 
 
 def reduce_block_stats(stats: BlockStats, valid: torch.Tensor) -> BlockCounters:
@@ -86,27 +99,31 @@ def count_block_metrics(u: torch.Tensor, result, info_pos: torch.Tensor,
 
 
 def pack_counters(c: BlockCounters, iters: torch.Tensor) -> torch.Tensor:
-    """BlockCounters + iteration count -> one int32[8] device tensor
-    (the f32 norm sum is carried as its bit pattern), so a batch's result
-    is one transfer."""
-    ints = torch.stack([
-        c.blocks, c.ok_blocks, c.error_bits, c.fer_frames,
-        c.conv_iters_sum, c.conv_count, iters.to(torch.int32),
-    ]).to(torch.int32)
+    """BlockCounters + iteration count -> one int32[8] device tensor in the
+    :data:`SLOTS` layout, so a batch's result is one transfer."""
+    named = dict(c._asdict(), iters=iters.to(torch.int32))
+    ints = torch.stack([named[f] for f in SLOTS[:_NORM]]).to(torch.int32)
     f = c.norm_llr_sum.to(torch.float32).reshape(1).view(torch.int32)
     return torch.cat([ints, f])
 
 
+def add_packed(total: torch.Tensor, packed: torch.Tensor) -> None:
+    """Add packed counters (``[..., 8]``, :func:`pack_counters`) into
+    ``total``, float64 ``[..., >= 8]`` in the same slots with the norm sum
+    as its value: exact, as float64 holds every count and f32 value."""
+    total[..., :_NORM] += packed[..., :_NORM].to(torch.float64)
+    total[..., _NORM] += packed[..., _NORM:_NORM + 1].view(
+        torch.float32)[..., 0].to(torch.float64)
+
+
 def unpack_counters(vec) -> tuple[BlockCounters, int]:
-    """Host-side inverse of :func:`pack_counters` (numpy scalars)."""
+    """Host-side inverse of :func:`pack_counters` (numpy scalars), also of
+    a float64 total (:func:`add_packed`; slots past the layout's ignored)."""
     if isinstance(vec, torch.Tensor):
         vec = vec.cpu().numpy()
     v = np.asarray(vec)
-    norm = v[7:8].view(np.float32)[0]
-    return (
-        BlockCounters(
-            blocks=v[0], ok_blocks=v[1], error_bits=v[2], fer_frames=v[3],
-            norm_llr_sum=norm, conv_iters_sum=v[4], conv_count=v[5],
-        ),
-        int(v[6]),
-    )
+    named = dict(zip(SLOTS, v))
+    if v.dtype == np.int32:  # the norm sum as its f32 bit pattern
+        named["norm_llr_sum"] = v[_NORM:_NORM + 1].view(np.float32)[0]
+    iters = int(named.pop("iters"))
+    return BlockCounters(**named), iters

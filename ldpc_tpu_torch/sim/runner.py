@@ -2,12 +2,13 @@
 
 Counterpart of ``ldpc_tpu/sim/runner.py``: ``PointExecutor`` (``:413-1092``),
 ``run_simulation`` (``:1095-1402``) and ``run_simulation_parallel``
-(``:1405-1549``). Each batch of codewords takes one of two pipelines.
+(``:1405-1549``). :func:`choose_route` decides, in one place, which of two
+pipelines a configuration's batches take, the unfused path's decoder, the
+layer groups, the two-phase split, ``kernel_used`` and every refusal.
 
-The fused path (``:521-872``), for a QC code, the exact rule on the original
-graph, an SPA / min-sum decoder, no interleaver, BPSK or the QPSK proxy and
-no shorten/puncture (either schedule, with or without the normalized-LLR
-metric, a scheduled alpha or int8 extrinsics):
+The fused path (``:521-872``), for what :func:`choose_route` sends there (a
+QC code the K1 kernel takes, no interleaver, BPSK or the QPSK proxy, no
+shorten/puncture):
 
 1. random info bits (a ``torch.Generator`` seeded from (seed, point, batch));
 2. the systematic encode, one matrix product (ops.encode);
@@ -17,13 +18,10 @@ metric, a scheduled alpha or int8 extrinsics):
 4. with a split, a stable argsort on ``ok`` that compacts the unconverged
    frames to the front lanes, and the LLR kernel (ops.mc_kernels.LLRDecoder)
    re-decoding them from the emitted LLRs with the full budget;
-5. the failed-frames BER rule, ``reduce_block_stats`` and ``pack_counters``.
+5. the failed-frames BER rule (ops.metrics.failed_frame_errors).
 
-The unfused path (``:891-946``), for everything else: any interleaver, Gray
-QAM, shorten/puncture, ``fused='off'``, and every configuration the QC
-kernels do not take (the ``std`` graph and legacy rule of ``--fidelity
-reference``, non-QC codes, bit-flipping, ``--kernel xla``). The batch's key
-splits into three generators (info bits, interleaver, channel):
+The unfused path (``:891-946``), for every other configuration; the batch's
+key splits into three generators (info bits, interleaver, channel):
 
 1. random info bits, the last S zeroed under shorten;
 2. the systematic encode into [B, n];
@@ -31,20 +29,17 @@ splits into three generators (info bits, interleaver, channel):
    kernel on the card, K6 (ops.qam_channel), from the same draws;
 4. punctured positions become erasures (``llr * mask``), shortened ones
    known zeros (-60);
-5. the decoder :func:`_select_decoder` picks as the JAX runner does: the
-   standalone QC decoder (ops.qc_kernels.QCDecoder, the CUDA port of
-   ``spa_pallas.make_qc_decoder``) for what it takes under ``--kernel
-   auto|pallas``, else the plain PyTorch decoders: flooding on the code's
-   EdgeLayout (ops.spa.make_decoder, bit-flipping included), or the layered
-   QC decoder (ops.layered) for ``--kernel xla --schedule layered``;
-6. ``block_stats`` with the failed-frames BER rule, ``reduce_block_stats``
-   and ``pack_counters``.
+5. the route's decoder (:meth:`Route.unfused_decoder`): the QC decoder
+   (ops.qc_kernels.QCDecoder, the CUDA port of ``spa_pallas.make_qc_decoder``)
+   or a plain PyTorch decoder (ops.spa, ops.layered);
+6. ``block_stats``, which applies the same BER rule.
 
-``fused='auto'`` takes the fused path whenever it is eligible, on either
-device, as the JAX package's does on a TPU. The two-phase split is resolved
-for every configuration first, with the JAX package's refusals
-(``:541-559``): an explicit split with ``--normalized-llr`` is refused, and
-``auto`` drops the split then.
+Either way a batch's counters are packed (:meth:`PointExecutor.packed`) and
+summed on the device (``ops.metrics.add_packed``), and fetched totals become
+``PointStats`` (``PointStats.add``), in ``run_point`` and the parallel sweep.
+
+``fused='auto'`` takes the fused path wherever :func:`choose_route` finds it
+eligible, on either device, as the JAX package's does on a TPU.
 
 A Python loop over batches takes the place of ``lax.scan``. Counters
 accumulate on the device and the host fetches them once per point; under
@@ -100,9 +95,12 @@ from ldpc_tpu_torch.ops.mc_kernels import (
     MCDecoder,
 )
 from ldpc_tpu_torch.ops.metrics import (
+    SLOTS,
     BlockCounters,
     BlockStats,
+    add_packed,
     block_stats,
+    failed_frame_errors,
     pack_counters,
     reduce_block_stats,
     unpack_counters,
@@ -234,10 +232,79 @@ def derive_key(key: int, index: int) -> int:
     return _mix(_mix(int(key) & _M64) ^ (int(index) & _M64))
 
 
-def check_decoder_options(opts: SimOptions) -> None:
-    """The JAX runner's refusals of the decoder's options
-    (``runner.py:248-261``), for either path."""
-    variant = opts.decoder_variant
+KNOWN_LLR = 60.0  # |LLR| of a known bit; channel convention: 0 -> negative
+
+# the JAX runner's refusal of fused='on' (runner.py:577-585), word for word
+FUSED_ON_TEXT = (
+    "fused='on' requires a QC code, check_rule='exact', "
+    "decode_graph='orig', an SPA/min-sum variant, "
+    "no interleaver, modulation 1/2, no "
+    "shorten/puncture, a mesh with a batch axis (or none) "
+    "outside the parallel sweep, and the kernel fitting VMEM "
+    "(--normalized-llr adds a scratch buffer to the VMEM plan)"
+)
+
+
+@dataclass(frozen=True)
+class Route:
+    """Where one configuration runs (:func:`choose_route`)."""
+
+    code: LDPCCode
+    opts: SimOptions
+    device: torch.device
+    fused: bool  # the fused path runs
+    decoder: str  # the unfused path's: 'qc' (K3), 'layered' or 'flooding'
+    layer_groups: list[list[int]] | None
+    phase1: int  # the fused path's two-phase split, 0 for a single pass
+    kernel: str  # ``kernel_used`` without the run loop's ``+2phase(...)``
+
+    @property
+    def loop_kw(self) -> dict:
+        """The decode loop's settings, as K1, K2 and K3 take them."""
+        o = self.opts
+        return dict(alpha=o.minsum_alpha, beta=o.minsum_beta,
+                    schedule=o.schedule or "flooding",
+                    layer_groups=self.layer_groups, check_every=o.check_every,
+                    track_norm=o.normalized_llr, msg_store=o.msg_store)
+
+    def unfused_decoder(self, info_pos, max_iterations: int):
+        """The unfused path's decoder over ``info_pos`` (the plain layered
+        decoder takes the paired order flattened)."""
+        code, o, variant = self.code, self.opts, self.opts.decoder_variant
+        if self.decoder == "qc":
+            return QCDecoder(code.qc, info_pos, max_iterations, variant,
+                             **self.loop_kw)
+        if self.decoder == "layered":
+            groups = self.layer_groups
+            return make_qc_layered_decoder(
+                code.qc, info_pos, max_iterations, variant,
+                alpha=o.minsum_alpha, beta=o.minsum_beta,
+                layer_order=(None if groups is None
+                             else [bi for g in groups for bi in g]),
+                device=self.device)
+        return make_decoder(code.layout(o.decode_graph), info_pos,
+                            max_iterations, variant, rule=o.check_rule,
+                            alpha=o.minsum_alpha, beta=o.minsum_beta,
+                            device=self.device)
+
+
+def choose_route(code: LDPCCode, opts: SimOptions, device: torch.device,
+                 max_iterations: int, modulation: int, interleaver: str, *,
+                 mesh=None, batch_axes: tuple[str, ...] = (),
+                 step_vmapped: bool = False) -> Route:
+    """The route of one configuration (``opts`` resolved; ``batch_axes``:
+    the mesh's axes that shard the batch): whether the fused path runs, the
+    unfused path's decoder, the layer groups, the two-phase split and the
+    ``kernel_used`` base, with the JAX runner's refusals
+    (``runner.py:237-388, 413-600``)."""
+    variant, schedule = opts.decoder_variant, opts.schedule or "flooding"
+    if modulation in (4, 16, 64) and opts.noise_model == "legacy":
+        raise ValueError(
+            "QAM modulations require noise_model='exact' (use --fidelity "
+            "exact or --noise-model exact): the legacy sigma^2-as-stddev "
+            "quirk is BPSK-specific and would make the SNR axis "
+            "incomparable"
+        )
     if np.ndim(opts.minsum_alpha) > 0 and variant != "normalized_minsum":
         raise ValueError(
             "a per-iteration --minsum-alpha schedule requires "
@@ -250,34 +317,52 @@ def check_decoder_options(opts: SimOptions) -> None:
             "tanh rule loses FER under message quantization, "
             "examples/quantized_messages)"
         )
-
-
-def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
-                    max_iterations: int, device: torch.device,
-                    graph: str = "orig"):
-    """The decoder of the unfused path and its ``kernel_used`` name, routed
-    as the JAX runner routes it (``runner.py:237-388``).
-
-    The QC decoder (CUDA, or its plain version for the CPU) takes a QC code
-    with the exact rule on the original graph and an SPA / min-sum variant
-    under ``--kernel auto`` or ``pallas``; everything else goes to the plain
-    PyTorch decoders: the layered QC decoder for ``--schedule layered``
-    (the paired order flattened), else the flooding decoder (or
-    bit-flipping) on ``code.layout(graph)``. Their ``kernel_used`` base is
-    ``torch``; the QC decoder's is ``cuda`` or ``cpu``."""
-    variant = opts.decoder_variant
-    want = opts.kernel
-    schedule = opts.schedule or "flooding"
-    if want not in ("auto", "pallas", "xla"):
-        raise ValueError(f"Unknown kernel: {want!r}")
-    eligible = (
-        variant in VARIANTS
-        and opts.check_rule == "exact"
-        and graph in ("orig", "original")
-        and code.qc is not None
+    S, P = opts.shorten, opts.puncture
+    if not 0 <= S < code.k:
+        raise ValueError(f"shorten={S} out of range [0, k={code.k})")
+    n_parity = code.n - code.k
+    if not 0 <= P < n_parity:
+        raise ValueError(f"puncture={P} out of range [0, n-k={n_parity})")
+    # the split, resolved for every configuration (runner.py:541-559)
+    phase1 = resolve_two_phase(opts.two_phase, max_iterations,
+                               opts.check_every)
+    if phase1 and opts.normalized_llr:
+        # the norm-LLR sum is a float accumulator the JAX package refuses
+        # to split; 'auto' runs a single pass
+        if opts.two_phase != "auto":
+            raise ValueError(
+                f"--two-phase {opts.two_phase} cannot be combined with "
+                "--normalized-llr: the norm-LLR sum is a float "
+                "accumulator that is not bit-stable across dispatch "
+                "modes (measured on TPU, parity_runs/tpu_two_phase."
+                "json); use --two-phase off"
+            )
+        phase1 = 0
+    # what the QC kernels (K1-K3) take of the code and decoder
+    qc_terms = (
+        ("a quasi-cyclic code", code.qc is None),
+        ("check_rule='exact'", opts.check_rule != "exact"),
+        ("decode_graph='orig'", opts.decode_graph not in ("orig", "original")),
+        ("an SPA/min-sum decoder", variant not in VARIANTS),
     )
-    use_qc = eligible and want in ("auto", "pallas")
-    if want == "pallas" and not eligible:
+    missing = tuple(what for what, bad in (
+        ("fused != 'off'", opts.fused == "off"),
+        ("kernel 'auto' or 'pallas'", opts.kernel not in ("auto", "pallas")),
+        *qc_terms,
+        ("no interleaver", interleaver != "none"),
+        ("modulation 1 or 2", modulation not in (1, 2)),
+        ("channel mode 1-3", opts.mode not in (1, 2, 3)),
+        ("no shorten/puncture", bool(S or P)),
+        ("a mesh with a batch axis (or none) outside the parallel sweep",
+         mesh is not None and (not batch_axes or step_vmapped)),
+    ) if bad)
+    if opts.fused == "on" and missing:
+        raise ValueError(FUSED_ON_TEXT + f" (missing: {', '.join(missing)})")
+    if opts.kernel not in ("auto", "pallas", "xla"):
+        raise ValueError(f"Unknown kernel: {opts.kernel!r}")
+    eligible = not any(bad for _, bad in qc_terms)
+    use_qc = eligible and opts.kernel in ("auto", "pallas")
+    if opts.kernel == "pallas" and not eligible:
         raise ValueError(
             "kernel='pallas' requires a quasi-cyclic code, check_rule='exact', "
             "decode_graph='orig' and an SPA/min-sum variant"
@@ -295,7 +380,6 @@ def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
             "check_rule='exact', decode_graph='orig', min-sum variant, "
             "kernel 'auto' on TPU or 'pallas')"
         )
-    layer_groups = resolve_layer_groups(code.qc, opts, schedule)
     if opts.check_every > 1 and not use_qc:
         raise ValueError(
             "--check-every > 1 is a Pallas decode-loop knob: it requires a "
@@ -303,56 +387,21 @@ def _select_decoder(code: LDPCCode, opts: SimOptions, info_pos,
             "check_rule='exact', decode_graph='orig', SPA/min-sum variant, "
             "kernel 'auto' on TPU or 'pallas')"
         )
-    if use_qc:
-        decoder = QCDecoder(
-            code.qc, info_pos, max_iterations, variant,
-            alpha=opts.minsum_alpha, beta=opts.minsum_beta, schedule=schedule,
-            track_norm=opts.normalized_llr, msg_store=opts.msg_store,
-            layer_groups=layer_groups, check_every=opts.check_every,
-        )
-        kind = "cuda" if device.type == "cuda" else "cpu"
-    elif schedule == "layered":
-        decoder = make_qc_layered_decoder(
-            code.qc, info_pos, max_iterations, variant,
-            alpha=opts.minsum_alpha, beta=opts.minsum_beta,
-            # the paired schedule as its flattened serial order
-            layer_order=(None if layer_groups is None
-                         else [bi for g in layer_groups for bi in g]),
-            device=device,
-        )
-        kind = "torch"
-    else:
-        decoder = make_decoder(
-            code.layout(graph), info_pos, max_iterations, variant,
-            rule=opts.check_rule, alpha=opts.minsum_alpha,
-            beta=opts.minsum_beta, device=device,
-        )
-        kind = "torch"
-    if schedule == "layered":
-        kind += "+layered"
-    if layer_groups is not None:
-        kind += "+paired"
-    if opts.check_every > 1:
-        kind += f"+ce{opts.check_every}"
-    return decoder, kind
-
-
-KNOWN_LLR = 60.0  # |LLR| of a known bit; channel convention: 0 -> negative
-
-# the JAX runner's refusal of fused='on' (runner.py:577-585), word for word
-FUSED_ON_TEXT = (
-    "fused='on' requires a QC code, check_rule='exact', "
-    "decode_graph='orig', an SPA/min-sum variant, "
-    "no interleaver, modulation 1/2, no "
-    "shorten/puncture, a mesh with a batch axis (or none) "
-    "outside the parallel sweep, and the kernel fitting VMEM "
-    "(--normalized-llr adds a scratch buffer to the VMEM plan)"
-)
+    groups = resolve_layer_groups(code.qc, opts, schedule)
+    where = "cuda" if device.type == "cuda" else "cpu"
+    kernel = (where + "+fused" if not missing else where if use_qc
+              else "torch") \
+        + ("+layered" if schedule == "layered" else "") \
+        + ("+paired" if groups is not None else "") \
+        + (f"+ce{opts.check_every}" if opts.check_every > 1 else "")
+    return Route(code, opts, device, not missing,
+                 "qc" if use_qc else schedule, groups,
+                 0 if missing else phase1, kernel)
 
 
 @dataclass
 class PointStats:
-    """Host-side aggregate for one SNR point."""
+    """Host-side aggregate for one SNR point (BlockCounters' fields)."""
 
     blocks: int = 0
     ok_blocks: int = 0
@@ -362,14 +411,14 @@ class PointStats:
     conv_iters_sum: int = 0
     conv_count: int = 0
 
-    def add(self, c: BlockCounters) -> None:
-        self.blocks += int(c.blocks)
-        self.ok_blocks += int(c.ok_blocks)
-        self.error_bits += int(c.error_bits)
-        self.fer_frames += int(c.fer_frames)
-        self.norm_llr_sum += float(c.norm_llr_sum)
-        self.conv_iters_sum += int(c.conv_iters_sum)
-        self.conv_count += int(c.conv_count)
+    def add(self, totals) -> int:
+        """Add fetched totals (:func:`~ldpc_tpu_torch.ops.metrics.
+        unpack_counters` reads them); returns their iterations."""
+        counters, iters = unpack_counters(totals)
+        for name, x in counters._asdict().items():
+            now = getattr(self, name)
+            setattr(self, name, now + type(now)(x))
+        return iters
 
 
 class PointExecutor:
@@ -396,13 +445,6 @@ class PointExecutor:
         self.max_iterations = max_iterations or opts.iterations
         il_kind = interleaver if interleaver is not None else opts.interleaver
         self.modulation = modulation or opts.modulation
-        if self.modulation in (4, 16, 64) and opts.noise_model == "legacy":
-            raise ValueError(
-                "QAM modulations require noise_model='exact' (use --fidelity "
-                "exact or --noise-model exact): the legacy sigma^2-as-stddev "
-                "quirk is BPSK-specific and would make the SNR axis "
-                "incomparable"
-            )
         self.batch = opts.auto_batch(code.n)
         # a mesh shards the batch over the axes it has of ``batch_axes``
         # (an snr-only mesh leaves it whole): the batch rounds up to a
@@ -418,19 +460,18 @@ class PointExecutor:
             * self.local_batch
         self._rows = (lo, lo + self.local_batch)
         self._sharded = shards > 1
-        check_decoder_options(opts)
+        self.route = choose_route(
+            code, opts, self.device, self.max_iterations, self.modulation,
+            il_kind, mesh=mesh, batch_axes=self._batch_axes,
+            step_vmapped=step_vmapped)
+        self.fused, self.phase1 = self.route.fused, self.route.phase1
+        self.kernel_used = self.route.kernel
 
         spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
         info_pos = spec.info_pos(self.graph)
-
         # rate adaptation: shorten the LAST S info bits (known zeros at the
         # receiver), puncture the LAST P parity positions (erasures)
         S, P = opts.shorten, opts.puncture
-        n_parity = code.n - code.k
-        if not 0 <= S < code.k:
-            raise ValueError(f"shorten={S} out of range [0, k={code.k})")
-        if not 0 <= P < n_parity:
-            raise ValueError(f"puncture={P} out of range [0, n-k={n_parity})")
         self.k_active = code.k - S
         self.effective_rate = self.k_active / max(code.n - S - P, 1)
         if (S or P) and abs(opts.speed - self.effective_rate) > 1e-9 \
@@ -443,46 +484,6 @@ class PointExecutor:
                 f"per-info-bit of the adapted code"
             )
 
-        schedule = opts.schedule or "flooding"
-        variant = opts.decoder_variant
-        fused_missing = [
-            what for what, bad in (
-                ("fused != 'off'", opts.fused == "off"),
-                ("kernel 'auto' or 'pallas'",
-                 opts.kernel not in ("auto", "pallas")),
-                ("a quasi-cyclic code", code.qc is None),
-                ("check_rule='exact'", opts.check_rule != "exact"),
-                ("decode_graph='orig'", self.graph not in ("orig", "original")),
-                ("an SPA/min-sum decoder", variant not in VARIANTS),
-                ("no interleaver", il_kind != "none"),
-                ("modulation 1 or 2", self.modulation not in (1, 2)),
-                ("channel mode 1-3", opts.mode not in (1, 2, 3)),
-                ("no shorten/puncture", bool(S or P)),
-                ("a mesh with a batch axis (or none) outside the parallel "
-                 "sweep", mesh is not None and (not self._batch_axes
-                                                 or step_vmapped)),
-            ) if bad
-        ]
-        # the split, resolved for every configuration (runner.py:541-559)
-        phase1 = resolve_two_phase(opts.two_phase, self.max_iterations,
-                                   opts.check_every)
-        if phase1 and opts.normalized_llr:
-            # the norm-LLR sum is a float accumulator the JAX package
-            # refuses to split; 'auto' runs a single pass
-            if opts.two_phase != "auto":
-                raise ValueError(
-                    f"--two-phase {opts.two_phase} cannot be combined with "
-                    "--normalized-llr: the norm-LLR sum is a float "
-                    "accumulator that is not bit-stable across dispatch "
-                    "modes (measured on TPU, parity_runs/tpu_two_phase."
-                    "json); use --two-phase off"
-                )
-            phase1 = 0
-        if opts.fused == "on" and fused_missing:
-            raise ValueError(FUSED_ON_TEXT
-                             + f" (missing: {', '.join(fused_missing)})")
-        self.fused = not fused_missing
-        self.phase1 = phase1 if self.fused else 0
         self._auto = False
         # the fused path at more than one codeword a block counts each
         # call's lane trips (its codewords' block trips, or, where K1
@@ -494,19 +495,15 @@ class PointExecutor:
         self._consts_cache: dict[float, torch.Tensor] = {}
         self.total_iters_run = 0
         if self.fused:
-            self._build_fused(code, opts, spec, info_pos, schedule, variant)
+            self._build_fused(spec, info_pos)
         else:
-            self._build_unfused(code, opts, spec, info_pos, il_kind, S, P)
+            self._build_unfused(spec, info_pos, il_kind)
 
-    def _build_fused(self, code, opts, spec, info_pos, schedule, variant):
+    def _build_fused(self, spec, info_pos):
         """Fused pipeline: encode, then the fused Monte-Carlo kernel."""
+        code, opts, variant = self.code, self.opts, self.opts.decoder_variant
         self._encode_T = make_encoder_T(spec, self.graph, self.device)
-        layer_groups = resolve_layer_groups(code.qc, opts, schedule)
-        loop_kw = dict(alpha=opts.minsum_alpha, beta=opts.minsum_beta,
-                       schedule=schedule, layer_groups=layer_groups,
-                       check_every=opts.check_every,
-                       track_norm=opts.normalized_llr,
-                       msg_store=opts.msg_store)
+        loop_kw = self.route.loop_kw
         mc_kw = dict(mode=opts.mode, modulation=self.modulation, **loop_kw)
         self._mc_full = MCDecoder(code.qc, info_pos, self.max_iterations,
                                   variant, **mc_kw)
@@ -517,23 +514,20 @@ class PointExecutor:
                                   emit_llr=True, **mc_kw)
             self._llr_dec = LLRDecoder(code.qc, info_pos, self.max_iterations,
                                        variant, **loop_kw)
-        self._kernel_base = ("cuda" if self.device.type == "cuda" else "cpu") \
-            + "+fused" + ("+layered" if schedule == "layered" else "") \
-            + ("+paired" if layer_groups is not None else "") \
-            + (f"+ce{opts.check_every}" if opts.check_every > 1 else "")
         self._auto = bool(self.phase1) and opts.two_phase == "auto"
         if self._auto:
-            self.kernel_used = self._kernel_base + "+2phase(auto)"
+            self.kernel_used += "+2phase(auto)"
             if self.device.type == "cuda":
                 self._overhead_us = self._measure_overhead()
-        else:
-            self.kernel_used = self._kernel_base + (
-                f"+2phase({self.phase1})" if self.phase1 else "")
+        elif self.phase1:
+            self.kernel_used += f"+2phase({self.phase1})"
 
-    def _build_unfused(self, code, opts, spec, info_pos, il_kind, S, P):
+    def _build_unfused(self, spec, info_pos, il_kind):
         """Unfused pipeline (``runner.py:891-946``): encode, interleave,
-        channel, deinterleave, puncture/shorten, the QC decoder, stats."""
-        dev = self.device
+        channel, deinterleave, puncture/shorten, the route's decoder,
+        stats."""
+        code, opts, dev = self.code, self.opts, self.device
+        P = opts.puncture
         n_parity = code.n - code.k
         short_pos = np.asarray(info_pos[self.k_active:], dtype=np.int64)
         parity_pos = np.setdiff1d(np.arange(code.n, dtype=np.int64),
@@ -546,7 +540,6 @@ class PointExecutor:
         llr_short[0, short_pos] = 1.0
         llr_punct = np.ones((1, code.n), np.float32)
         llr_punct[0, punct_pos] = 0.0
-        self._S, self._P = S, P
         self._llr_punct = torch.as_tensor(llr_punct, device=dev)
         self._llr_keep = torch.as_tensor(1.0 - llr_short, device=dev)
         self._llr_known = torch.as_tensor(KNOWN_LLR * llr_short, device=dev)
@@ -565,8 +558,8 @@ class PointExecutor:
                 device=dev)
             self._channel = make_channel_fn(opts.mode, self.modulation,
                                             n=code.n)
-        self._decoder, self.kernel_used = _select_decoder(
-            code, opts, info_pos, self.max_iterations, dev, self.graph)
+        self._decoder = self.route.unfused_decoder(info_pos,
+                                                   self.max_iterations)
 
     # ------------------------------------------------------------ batches --
 
@@ -645,11 +638,9 @@ class PointExecutor:
         with timing.batch_span("batch.decode"):
             err, ok, conv, norm, iters = self._decode(wT, consts, seeds, raw,
                                                       p1, lo, idle)
-        if not self.opts.exact_ber:
-            # reference: bits counted only when decode failed (main.py:134)
-            err = torch.where(ok, 0, err).to(torch.int32)
-        return BlockStats(error_bits=err, ok=ok, conv_iter=conv,
-                          norm_llr=norm), iters
+        return BlockStats(
+            error_bits=failed_frame_errors(err, ok, self.opts.exact_ber),
+            ok=ok, conv_iter=conv, norm_llr=norm), iters
 
     def _unfused_step(self, key: int, consts: torch.Tensor, *,
                       u: torch.Tensor | None = None,
@@ -687,7 +678,7 @@ class PointExecutor:
             if u is None:
                 u = random_info_bits(self._generator(derive_key(key, 0)),
                                      self.batch, self.code.k)
-            if self._S:
+            if self.opts.shorten:
                 u = u.clone()
                 u[:, self.k_active:] = 0
         with timing.batch_span("batch.encode"):
@@ -703,9 +694,9 @@ class PointExecutor:
                     llr = self._channel(self._generator(derive_key(key, 2)),
                                         w_int, consts)
                 llr = self._deinterleave(il_state, llr)
-            if self._P:  # punctured parity bits arrive as erasures
+            if self.opts.puncture:  # punctured parity bits arrive as erasures
                 llr = llr * self._llr_punct
-            if self._S:  # shortened info bits are known zeros
+            if self.opts.shorten:  # shortened info bits are known zeros
                 llr = llr * self._llr_keep - self._llr_known
         lo, hi = self._rows
         return u[lo:hi], w[lo:hi], llr[lo:hi].contiguous()
@@ -728,7 +719,7 @@ class PointExecutor:
         active = [i for i, s in enumerate(skips) if not s]
         draws = [self._draw(keys[i], consts[i]) for i in active]
         results = {}
-        if isinstance(self._decoder, QCDecoder) and active:
+        if self.route.decoder == "qc" and active:
             outs = self._decoder.outputs(torch.cat([d[2] for d in draws]))
             for j, i in enumerate(active):
                 rows = [x[j * Bl:(j + 1) * Bl] for x in outs]
@@ -884,9 +875,10 @@ class PointExecutor:
             key_point = derive_key(
                 self.opts.seed if base_key is None else base_key, point_index)
             B = self.batch
-            acc = torch.zeros(9 if self._lane_trips else 8,
+            # the batch counters' totals, then this rank's lane trips
+            acc = torch.zeros(len(SLOTS) + self._lane_trips,
                               dtype=torch.float64, device=self.device)
-            idle = acc[8:9] if self._lane_trips else None
+            idle = acc[len(SLOTS):] if self._lane_trips else None
             stats = PointStats()
             remaining = blocks
             batch_idx = start_batch
@@ -895,12 +887,9 @@ class PointExecutor:
             def add(s, it, take: int) -> None:
                 nonlocal remaining, batch_idx
                 with timing.batch_span("batch.counters"):
-                    packed = self.packed(s, it, take)
-                    acc[:7] += packed[:7].to(torch.float64)
-                    acc[7] += packed[7:8].view(torch.float32)[0].to(
-                        torch.float64)
+                    add_packed(acc, self.packed(s, it, take))
                     if self._lane_trips:  # this rank's rows below take
-                        acc[8] += it[:max(take - self._rows[0], 0)].sum()
+                        idle.add_(it[:max(take - self._rows[0], 0)].sum())
                 remaining -= take
                 batch_idx += 1
 
@@ -908,17 +897,16 @@ class PointExecutor:
                 with timing.span("flush"):
                     v = acc.tolist()  # the one host fetch
                     if self._sharded:
-                        # the batch's counters, summed over its shards; the
-                        # trips stay this rank's own
+                        # the batch's counters and trips, summed over its
+                        # shards; the decode's iterations stay this rank's
                         tot = self.mesh.all_reduce(
                             acc, self._batch_axes).tolist()
-                        v = tot[:6] + v[6:7] + tot[7:]
+                        v = [x if f == "iters" else t for f, x, t
+                             in zip(SLOTS + ("trips",), v, tot)]
                     acc.zero_()
-                    stats.add(BlockCounters(*(int(x) for x in v[:4]),
-                                            float(v[7]), int(v[4]), int(v[5])))
-                    self.total_iters_run += int(v[6])
+                    self.total_iters_run += stats.add(v)
                     if self._lane_trips:
-                        timing.count("lane_trips", int(v[8]))
+                        timing.count("lane_trips", int(v[len(SLOTS)]))
                 timing.count("fetches", 2 if self._sharded else 1)
 
             def batches(count: int) -> None:
@@ -939,7 +927,7 @@ class PointExecutor:
                                               consts, idle)
                     add(s, it, min(remaining, B))
                     self._two_phase_choice[snr_db] = use2
-                self.kernel_used = self._kernel_base + (
+                self.kernel_used = self.route.kernel + (
                     f"+2phase(auto:{self.phase1})" if use2
                     else "+2phase(auto:off)")
                 p1 = self.phase1 if use2 else 0
@@ -1261,11 +1249,8 @@ def _parallel_ckpt_save(path: str, fp, batch_idx: int, remaining: int,
         "batch_idx": batch_idx,
         "remaining": remaining,
         "total_iters_run": total_iters,
-        "counters": [
-            [s.blocks, s.ok_blocks, s.error_bits, s.fer_frames,
-             s.norm_llr_sum, s.conv_iters_sum, s.conv_count]
-            for s in stats_list
-        ],
+        "counters": [[getattr(s, f) for f in BlockCounters._fields]
+                     for s in stats_list],
     }
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "w", encoding="utf-8") as f:
@@ -1289,12 +1274,8 @@ def _parallel_ckpt_load(path: str, fp, n_points: int, say, device_batch: int):
         say(f"Checkpoint {path} belongs to a different sweep configuration; "
             "starting fresh.")
         return None
-    stats_list = []
-    for row in d["counters"]:
-        s = PointStats()
-        (s.blocks, s.ok_blocks, s.error_bits, s.fer_frames,
-         s.norm_llr_sum, s.conv_iters_sum, s.conv_count) = row
-        stats_list.append(s)
+    stats_list = [PointStats(**dict(zip(BlockCounters._fields, row)))
+                  for row in d["counters"]]
     say(f"Resuming parallel sweep from {path}: batch {d['batch_idx']}, "
         f"{d['remaining']} blocks/point remaining")
     return d["batch_idx"], d["remaining"], d["total_iters_run"], stats_list
@@ -1382,14 +1363,14 @@ def run_simulation_parallel(
             stats, iters = sweep(keys, consts, finished.tolist())
             valid = arange_b < take
             live = np.flatnonzero(~finished).tolist()
-            packed = torch.stack([
+            totals = torch.zeros(len(live), len(SLOTS), dtype=torch.float64,
+                                 device=device)
+            add_packed(totals, torch.stack([
                 pack_counters(reduce_block_stats(
                     BlockStats(*(x[s] for x in stats)), valid), iters[s])
-                for s in live]).cpu().numpy()  # one fetch a batch
-            for s, row in zip(live, packed):
-                counters, _ = unpack_counters(row)
-                stats_list[s].add(counters)
-                executor.total_iters_run += int(row[6])
+                for s in live]))
+            for s, row in zip(live, totals.tolist()):  # one fetch a batch
+                executor.total_iters_run += stats_list[s].add(row)
             remaining -= take
             batch_idx += 1
             if opts.checkpoint:

@@ -192,7 +192,7 @@ def test_one_codeword_a_block_adds_nothing(rec, two_phase):
     assert ex.lanes == 1
     # draw, encode and counters of 4 batches, the flush and the call's own
     # operators: a block of one codeword counts no lane trips
-    assert _ops_outside_decode(ex) == 264
+    assert _ops_outside_decode(ex) == 260
     root, _ = timing.units(rec.spans, "run_point")[-1]
     assert "lane_trips" not in root.attrs
     assert ("split_batches" in root.attrs) == (two_phase != "off")

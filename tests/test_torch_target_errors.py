@@ -30,8 +30,8 @@ CCSDS = "builtin:CCSDS_ldpc_n32_k16.alist.txt"
 GRID = [(160, 1), (320, 1), (96, 1), (640, 100), (640, 256)]
 
 
-def _kw(blocks, target, fused):
-    return dict(matrix=CCSDS, blocks=blocks, iterations=3, ber=True,
+def _kw(blocks, target, fused, iterations=3):
+    return dict(matrix=CCSDS, blocks=blocks, iterations=iterations, ber=True,
                 fer=True, fidelity="exact", batch=32, seed=7,
                 initial_snr=-15.0, end_snr=-15.0, quiet=True,
                 target_errors=target, fused=fused)
@@ -59,3 +59,14 @@ def test_grouped_stop_ends_at_a_group_edge():
     t = {target: _blocks(torch_run, TOptions, **_kw(640, target, "on"))
          for target in (100, 256)}
     assert t == {100: 256, 256: 256}
+
+
+@pytest.mark.parametrize("blocks,target,expected", [(640, 100, 288),
+                                                    (160, 1, 32)])
+def test_auto_probe_batch_is_flushed_alone(blocks, target, expected):
+    """At 12 iterations ``auto`` probes its first batch and checks the
+    quota after it alone, before the grouped schedule starts: 640 frames
+    at a target of 100 stop at 32 + 256 frames, not at 256."""
+    kw = _kw(blocks, target, "on", iterations=12)
+    assert _blocks(torch_run, TOptions, **kw) == expected
+    assert _blocks(jax_run, JOptions, **kw) == expected

@@ -7,7 +7,10 @@ waterfall."""
 from __future__ import annotations
 
 import csv
+import dataclasses
+import functools
 import json
+import operator
 import os
 
 import jax.numpy as jnp
@@ -22,12 +25,22 @@ from ldpc_tpu.ops import metrics as jmetrics
 from ldpc_tpu.ops.spa import make_decoder
 from ldpc_tpu.sim import results as jresults
 from ldpc_tpu.sim import runner as jrunner
+from ldpc_tpu.sim.config import SimOptions as JOptions
+from ldpc_tpu_torch.analysis import importance as tis
 from ldpc_tpu_torch.models.generate import gallager_regular
+from ldpc_tpu_torch.ops import metrics as tmetrics
+from ldpc_tpu_torch.ops.layered import QCLayeredDecoder
+from ldpc_tpu_torch.ops.mc_kernels import MCDecoder
+from ldpc_tpu_torch.ops.qc_kernels import QCDecoder
+from ldpc_tpu_torch.ops.spa import BitflipDecoder, DecodeResult, FloodingDecoder
 from ldpc_tpu_torch.sim import runner as trunner
 from ldpc_tpu_torch.sim.config import SimOptions
 from ldpc_tpu_torch.sim.results import SimulationResult
 from ldpc_tpu_torch.sim.runner import (
+    FUSED_ON_TEXT,
     PointExecutor,
+    PointStats,
+    choose_route,
     load_code,
     run_simulation,
     snr_steps,
@@ -157,6 +170,179 @@ def test_unported_or_invalid_configurations_raise(kw, exc, what):
         return
     with pytest.raises(exc, match=what):
         PointExecutor(load_code(f"builtin:{W576}"), _opts(**opts), device="cpu")
+
+
+# the paired layered schedule with a check every 2 iterations (12 of them)
+PAIRED = dict(schedule="layered", layer_order="paired", check_every=2,
+              iterations=12)
+
+
+@pytest.mark.parametrize("who,kw,fused,cls,kind", [
+    ("executor", dict(PAIRED), True, MCDecoder,
+     "cpu+fused+layered+paired+ce2+2phase(auto)"),
+    ("executor", dict(PAIRED, two_phase="6"), True, MCDecoder,
+     "cpu+fused+layered+paired+ce2+2phase(6)"),
+    ("executor", dict(PAIRED, two_phase="off"), True, MCDecoder,
+     "cpu+fused+layered+paired+ce2"),
+    ("executor", dict(schedule="flooding", iterations=12), True, MCDecoder,
+     "cpu+fused+2phase(auto)"),
+    ("executor", dict(schedule="layered", decoder="minsum", msg_store="int8",
+                      two_phase="off"), True, MCDecoder, "cpu+fused+layered"),
+    ("executor", dict(schedule="layered", interleaver="random"), False,
+     QCDecoder, "cpu+layered"),
+    ("executor", dict(schedule="flooding", kernel="pallas",
+                      interleaver="regular"), False, QCDecoder, "cpu"),
+    ("executor", dict(schedule="layered", kernel="xla"), False,
+     QCLayeredDecoder, "torch+layered"),
+    ("executor", dict(fidelity="reference"), False, FloodingDecoder, "torch"),
+    ("executor", dict(decoder="bitflipping"), False, BitflipDecoder, "torch"),
+    ("importance", dict(PAIRED, two_phase="off"), False, QCDecoder,
+     "cpu+layered+paired+ce2"),
+])
+def test_route_table(who, kw, fused, cls, kind):
+    """Each route of the port: whether the fused path runs, the decoder
+    class that runs the batch and ``kernel_used``, for the executor and
+    for importance sampling's step (always the unfused route's)."""
+    code = load_code(f"builtin:{W576}")
+    opts = _opts(**{"iterations": 4, **kw})
+    if who == "importance":
+        shifts = tis.orbit_supports([[0]], code.qc.Z, code.n)
+        _, used = tis.make_is_step(code, opts, shifts, device="cpu")
+        route = choose_route(code, dataclasses.replace(opts.resolved(),
+                                                       fused="off"),
+                             torch.device("cpu"), opts.iterations,
+                             opts.modulation, opts.interleaver)
+        assert route.fused == fused and used == route.kernel == kind
+        info = np.arange(code.k)
+        assert type(route.unfused_decoder(info, opts.iterations)) is cls
+        return
+    ex = PointExecutor(code, opts, device="cpu")
+    assert ex.fused == ex.route.fused == fused and ex.kernel_used == kind
+    assert type(ex._mc_full if fused else ex._decoder) is cls
+    assert ex.route.decoder == {QCLayeredDecoder: "layered",
+                                FloodingDecoder: "flooding",
+                                BitflipDecoder: "flooding"}.get(cls, "qc")
+
+
+# one fault each, in the order the executor checks them (and a value that
+# breaks each rule on wimax 576 at 12 iterations)
+FAULTS = {
+    "qam_legacy": dict(modulation=16, noise_model="legacy"),
+    "decoder_options": dict(minsum_alpha=(0.7, 0.8), decoder="minsum"),
+    "shorten_range": dict(shorten=288),
+    "two_phase": dict(two_phase="20"),
+    "fused_on": dict(fused="on", interleaver="random"),
+    "decoder": dict(msg_store="int8", decoder="minsum", kernel="xla"),
+}
+
+
+def _refusal(make, opts_cls, kw) -> str:
+    with pytest.raises(ValueError) as e:
+        make(opts_cls(**dict(matrix=f"builtin:{W576}", fidelity="exact",
+                             batch=64, iterations=12, seed=1, quiet=True,
+                             **kw)))
+    return str(e.value)
+
+
+@pytest.mark.parametrize("first,second", [
+    (a, b) for i, a in enumerate(FAULTS) for b in list(FAULTS)[i + 1:]])
+def test_refusal_order(first, second):
+    """A configuration with two faults gets the refusal of the one checked
+    first, in the JAX package's words for that fault alone (its
+    ``fused='on'`` text without the port's list of what is missing)."""
+    code = load_code(f"builtin:{W576}")
+    port = _refusal(lambda o: PointExecutor(code, o, device="cpu"),
+                    SimOptions, {**FAULTS[first], **FAULTS[second]})
+    jcode = jrunner.load_code(f"builtin:{W576}")
+    jax = _refusal(lambda o: jrunner.PointExecutor(jcode, o), JOptions,
+                   FAULTS[first])
+    if first == "fused_on":
+        assert jax == FUSED_ON_TEXT and port.startswith(FUSED_ON_TEXT)
+    else:
+        assert port == jax
+
+
+def _fake_decode(B, k):
+    """Per-frame decode outputs with errors in failed and converged frames,
+    as the fused kernels return them and as a DecodeResult that gives the
+    same errors against all-zero info bits."""
+    rng = np.random.default_rng(5)
+    err = torch.from_numpy(rng.integers(0, k, B).astype(np.int32))
+    ok = torch.from_numpy(rng.random(B) < 0.5)
+    conv = torch.where(ok, 3, -1).to(torch.int32)
+    norm = torch.from_numpy(rng.random(B).astype(np.float32))
+    est = (torch.arange(k)[None, :] < err[:, None]).to(torch.uint8)
+    res = DecodeResult(ok=ok, est=est, conv_iter=conv, norm_llr=norm,
+                       iters_run=torch.tensor(12, dtype=torch.int32))
+    return (err, ok, conv, norm, torch.full((B,), 12, dtype=torch.int32)), res
+
+
+@pytest.mark.parametrize("exact_ber", [False, True])
+def test_failed_frames_rule_is_one(monkeypatch, exact_ber):
+    """The BER rule (errors of failed frames only, every frame's under
+    ``exact_ber``) reads the same on the fused step and in
+    ``block_stats``."""
+    code = load_code(f"builtin:{W576}")
+    ex = PointExecutor(code, _opts(schedule="layered", iterations=4,
+                                   exact_ber=exact_ber), device="cpu")
+    assert ex.fused
+    outs, res = _fake_decode(B, code.k)
+    monkeypatch.setattr(ex, "_decode", lambda *a, **kw: outs)
+    fused, _ = ex.step(0, ex.consts(1.0))
+    unfused = tmetrics.block_stats(torch.zeros(B, code.k, dtype=torch.uint8),
+                                   res, torch.arange(code.k), exact=exact_ber)
+    err, ok = outs[:2]
+    want = err if exact_ber else torch.where(ok, 0, err)
+    assert torch.equal(fused.error_bits, want)
+    assert torch.equal(unfused.error_bits, want)
+    assert bool((want[ok] > 0).any()) == exact_ber
+
+
+@pytest.mark.parametrize("kw", [
+    dict(schedule="layered", normalized_llr=True, two_phase="off"),
+    dict(schedule="layered", interleaver="random", normalized_llr=True),
+])
+def test_counter_layout_round_trip(tmp_path, kw):
+    """The totals ``run_point`` gathers over a few batches (a partial last
+    one included) equal the sum of ``unpack_counters`` of each batch's
+    ``packed``, field by field, ``total_iters_run`` too; the parallel
+    checkpoint keeps ``PointStats`` in ``BlockCounters``' order."""
+    ex = PointExecutor(load_code(f"builtin:{W576}"), _opts(iterations=6, **kw),
+                       device="cpu")
+    packs = []
+    real = ex.packed
+
+    def packed(stats, iters, take):
+        packs.append(real(stats, iters, take))
+        return packs[-1]
+
+    ex.packed = packed
+    st = ex.run_point(1.5, 3 * B + 10)
+    assert len(packs) == 4 and st.blocks == 3 * B + 10
+    want = {f: 0 for f in tmetrics.BlockCounters._fields}
+    iters = 0
+    for p in packs:
+        c, it = tmetrics.unpack_counters(p)
+        iters += it
+        for f, x in c._asdict().items():
+            want[f] += float(x) if f == "norm_llr_sum" else int(x)
+    assert dataclasses.asdict(st) == want and ex.total_iters_run == iters
+    # BlockCounters' own sum (the studies') gives the same counts
+    summed = functools.reduce(operator.add, (tmetrics.unpack_counters(p)[0]
+                                             for p in packs))
+    assert {f: int(x) for f, x in summed._asdict().items()
+            if f != "norm_llr_sum"} == {f: x for f, x in want.items()
+                                        if f != "norm_llr_sum"}
+    assert 0 < st.ok_blocks < st.blocks and st.norm_llr_sum > 0
+    assert [f.name for f in dataclasses.fields(PointStats)] == list(
+        tmetrics.BlockCounters._fields)
+    path = str(tmp_path / "ckpt.json")
+    trunner._parallel_ckpt_save(path, ["fp"], 4, 0, [st], iters, B)
+    row = json.loads(open(path).read())["counters"][0]
+    assert row == [st.blocks, st.ok_blocks, st.error_bits, st.fer_frames,
+                   st.norm_llr_sum, st.conv_iters_sum, st.conv_count]
+    back = trunner._parallel_ckpt_load(path, ["fp"], 1, print, B)
+    assert back == (4, 0, iters, [st])
 
 
 def test_non_qc_code_and_profile_raise(tmp_path):
