@@ -54,8 +54,9 @@ Phases:
    two-phase ``auto`` (the probe may choose a single pass) and with the
    split forced at 6 phase-1 iterations (phase 2 is ``llr_decoder``). The
    launch counts are zeroed just before each run and read just after; each
-   run must launch the kernels its dispatch uses, and both kernels must
-   have launched. The two runs draw the same frames, and the decode works
+   run must launch the kernels its dispatch uses, both kernels must have
+   launched, and K7 and its add must each launch once a batch of the run's
+   ``batches`` counter (the ``kernels`` line's K7 count). The two runs draw the same frames, and the decode works
    lane by lane, so their counters must be equal. FER must lie within 5
    standard errors of 0.0065, the JAX package's FER at this point
    (``BENCH_r04.json``), used as a statistic of the code, not as a speed.
@@ -101,11 +102,23 @@ Phases:
    for bit, one launch a call; its ``ptxas`` line; then K6 timed at the
    16-QAM mode-2 random configuration beside its bound by bytes, the
    wrapper's whole call (draws and argsort) and the plain chain.
+   6c. K7 ``batch_counters`` (a batch's counters and their add into the
+   float64 totals) against its plain version at 4096 and 131,072 frames:
+   every row, a partial ``take`` at a shard's row offset ``lo`` > 0, no
+   row, ``iters`` [B] and [1], arrays misaligned for its vector loads; the
+   integer slots equal, the norm slot bit-equal over two launches and
+   within 1e-6 relative of the plain f32 sum; the add equal to the plain
+   add. Then ``run_point`` on the main configuration: ``BATCH_COUNTERS``
+   and ``ADD_COUNTERS`` launch once a batch, the probe's included, and the
+   point's counters equal a run through the plain reduction. Then K7 timed
+   with CUDA events (launches queued behind a device sleep, so that the card
+   runs them back to back) beside its bound by bytes, and the host's time a
+   batch to enqueue both launches against the plain operators'.
 7. The unfused path through ``run_simulation``: the burst-interleaver
    configuration at wimax 1152 (16-QAM, mode-2 jamming p 0.15 at -3 dB,
    random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
-   batches of 4096; its JSON written and read back; K3 and K6 must launch
-   once per batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
+   batches of 4096; its JSON written and read back; K3, K6, K7 and K7's
+   add must launch once per batch and K1 / K2 never. Then the CLI's default schedule, flooding SPA-16,
    BPSK, at 2.0 dB over 64 batches, through K3 (``fused='off'``: K3 once
    per batch) and through the fused kernels (``auto``, then ``--two-phase
    off``: K1, never K3), each with its info bits/s; then where the time of
@@ -318,6 +331,26 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_queued_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls enqueued behind a
+    device sleep, so that the card runs them back to back however long the
+    host takes to enqueue each (CUDA events)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at 1980 MHz
     t0.record()
     for _ in range(reps):
         fn()
@@ -1021,6 +1054,176 @@ def phase_qam_channel(dev, smi: str) -> dict:
             "library_ms": None}
 
 
+def phase_batch_counters(dev, smi: str) -> dict:
+    """Phase 6c: K7 ``batch_counters`` against its plain version, its
+    engagement in ``run_point`` and its time. Returns the ``kernels``
+    entry."""
+    import torch
+
+    from ldpc_tpu_torch.ops import build
+    from ldpc_tpu_torch.ops.metrics import (
+        ADD_COUNTERS,
+        BATCH_COUNTERS,
+        BlockStats,
+        launch_add_packed,
+        launch_batch_counters,
+        plain_add_packed,
+        plain_batch_counters,
+    )
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+    from ldpc_tpu_torch.utils import timing
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def stats_of(B, norm):
+        ok = torch.rand(B, generator=gen, device=dev) < 0.6
+        err = torch.randint(0, 60, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        conv = torch.randint(0, 12, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        conv = torch.where(torch.rand(B, generator=gen, device=dev) < 0.7,
+                           conv, -1)
+        nl = (3 * torch.rand(B, generator=gen, device=dev) if norm
+              else torch.zeros(B, device=dev))
+        return BlockStats(torch.where(ok, 0, err), ok, conv, nl)
+
+    log("compare batch_counters (integer slots equal, norm slot bit-equal "
+        "over two launches and within 1e-6 of the plain f32 sum):")
+    worst, calls = 0.0, 0
+    n0, a0 = BATCH_COUNTERS.launches, ADD_COUNTERS.launches
+    for B in (BATCH, 131072):
+        for norm in (False, True):
+            full = stats_of(B + 1, norm)
+            its = torch.randint(1, 13, (B + 1,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            # (lo, take, the arrays' offset in elements)
+            cases = {"every row": (0, B, 0),
+                     "part of a shard": (3 * B, 4 * B - 1000, 0),
+                     "no row": (2 * B, 2 * B, 0),
+                     "iters [1]": (B, 2 * B - 7, 0),
+                     "misaligned": (0, B - 5, 1)}
+            row = []
+            for tag, (lo, take, skew) in cases.items():
+                st = BlockStats(*(x[skew:skew + B] for x in full))
+                it = its[skew:skew + B] if tag != "iters [1]" else its[:1]
+                k1 = launch_batch_counters(st, it, lo, take)
+                k2 = launch_batch_counters(st, it, lo, take)
+                plain = plain_batch_counters(st, it, lo, take)
+                calls += 2
+                sync()
+                f_k = float(k1[7:].view(torch.float32))
+                f_p = float(plain[7:].view(torch.float32))
+                valid = torch.arange(lo, lo + B, device=dev) < take
+                f_64 = float(st.norm_llr.double()[valid].sum())
+                rel = abs(f_k - f_p) / max(abs(f_p), 1e-30)
+                row.append(f"{tag} {k1[:7].tolist()} norm {f_k:.9g} (plain "
+                           f"{f_p:.9g}, float64 {f_64:.9g}, rel {rel:.3g})")
+                if not torch.equal(k1, k2):
+                    fail(f"batch_counters B={B} {tag}: two launches differ: "
+                         f"{k1.tolist()} / {k2.tolist()}")
+                if not torch.equal(k1[:7], plain[:7]):
+                    fail(f"batch_counters B={B} {tag}: {k1.tolist()} against "
+                         f"the plain {plain.tolist()}")
+                if rel > 1e-6:
+                    fail(f"batch_counters B={B} {tag}: norm sum {f_k!r} "
+                         f"against the plain {f_p!r}")
+                worst = max(worst, rel)
+                for shape in ((9,), (3, 8)):
+                    packed = k1.expand(*shape[:-1], 8).contiguous()
+                    t_k = torch.arange(float(math.prod(shape)), device=dev,
+                                       dtype=torch.float64).reshape(shape)
+                    t_p = t_k.clone()
+                    launch_add_packed(t_k, packed)
+                    plain_add_packed(t_p, packed)
+                    if not torch.equal(t_k, t_p):
+                        fail(f"add_counters {shape}: {t_k.tolist()} against "
+                             f"the plain {t_p.tolist()}")
+            log(f"  B={B} norm {'values' if norm else 'zeros'}: "
+                + "; ".join(row))
+    launched = (BATCH_COUNTERS.launches - n0, ADD_COUNTERS.launches - a0)
+    if launched != (calls, len(cases) * 4 * 2):
+        fail(f"batch_counters / add_counters launched {launched} times for "
+             f"{calls} / {len(cases) * 4 * 2} calls")
+    log("ptxas batch_counters: " + ", ".join(
+        f"{k} {v}" for k, v in build.ptxas_report(
+            build.ptxas_log("batch_counters")).items()))
+
+    # engagement: a launch of each a batch in run_point, the probe's too,
+    # and the point's counters as the plain reduction gives them
+    code = load_code(W1152)
+    opts = SimOptions(matrix=code.name, blocks=BATCH, iterations=ITERS,
+                      ber=True, fer=True, fidelity="exact", batch=BATCH,
+                      seed=0, speed=0.5, schedule="layered",
+                      layer_order="paired", check_every=CHECK_EVERY)
+    frames = 5 * BATCH + 1000
+    ex = PointExecutor(code, opts, device=dev)
+    n0, a0 = BATCH_COUNTERS.launches, ADD_COUNTERS.launches
+    st_k = ex.run_point(SNR_DB, frames, point_index=5)
+    root = timing.units(timing.RECORDER.spans, "run_point")[-1][0]
+    launched = (BATCH_COUNTERS.launches - n0, ADD_COUNTERS.launches - a0)
+    ex_p = PointExecutor(code, opts, device=dev)
+    ex_p.packed = lambda s, it, take: plain_batch_counters(
+        s, it, ex_p._rows[0], take)
+    st_p = ex_p.run_point(SNR_DB, frames, point_index=5)
+    log(f"run_point through K7: {root.attrs['batches']} batches (probe "
+        f"{root.attrs.get('probes', 0)}), launches batch_counters / "
+        f"add_counters {launched}; counters {vars(st_k)}; through the plain "
+        f"reduction {vars(st_p)}")
+    if launched != (root.attrs["batches"],) * 2:
+        fail(f"run_point ran {root.attrs['batches']} batches but K7 launched "
+             f"{launched}")
+    if vars(st_k) != vars(st_p):
+        fail(f"run_point through K7 counted {vars(st_k)}, through the plain "
+             f"reduction {vars(st_p)}")
+
+    # time: K7 and the add by CUDA events; the host's enqueue of a batch's
+    # counters, K7 against the plain operators
+    times = {}
+    for B in (BATCH, 131072):
+        st = stats_of(B, False)
+        it = torch.randint(1, 13, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        acc = torch.zeros(9, dtype=torch.float64, device=dev)
+        packed = launch_batch_counters(st, it, 0, B)
+        t_k7 = time_queued_ms(lambda: launch_batch_counters(st, it, 0, B),
+                              reps=200)
+        t_add = time_queued_ms(lambda: launch_add_packed(acc, packed),
+                               reps=200)
+        t_plain = time_queued_ms(lambda: plain_add_packed(
+            acc, plain_batch_counters(st, it, 0, B)), reps=20)
+
+        def host_us(fn, reps=400):
+            for _ in range(20):
+                fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            t1 = time.perf_counter()
+            sync()
+            return 1e6 * (t1 - t0) / reps
+
+        h_k7 = host_us(lambda: launch_add_packed(
+            acc, launch_batch_counters(st, it, 0, B)))
+        h_plain = host_us(lambda: plain_add_packed(
+            acc, plain_batch_counters(st, it, 0, B)))
+        nbytes = 17 * B + 32  # per frame 4 x 4 B and the verdict; int32[8]
+        bound, by = bound_ms(0, nbytes, 1.0)
+        times[B] = (t_k7, bound, by, t_plain)
+        log(f"timing batch_counters (B={B}; {smi}): {t_k7:.5f} ms (bound "
+            f"{bound:.4g} ms by {by}, {nbytes} bytes: "
+            f"{100 * bound / t_k7:.2f}% of it), add_counters {t_add:.5f} ms; "
+            f"the plain reduction and add {t_plain:.5f} ms; host enqueue a "
+            f"batch {h_k7:.2f} us (plain {h_plain:.2f} us)")
+    t_k7, bound, by, t_plain = times[BATCH]
+    return {"name": "batch_counters", "route": "cuda",
+            "source": CSRC + "batch_counters.cu", "replaces": None,
+            "launches": launched[0], "max_abs_err": worst, "ms": t_k7,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, float]:
     """|FER - reference FER| and 5 combined standard errors of the two: the
     studies' own comparison (``scripts.study.five_se``, from the pooled
@@ -1035,15 +1238,18 @@ def phase_unfused(dev):
     """Phases 7 and 8: the unfused path through ``run_simulation``, and the
     CLI's default flooding configuration both through K3 (``fused='off'``)
     and through the fused kernels. Returns K3's and K6's launches on the
-    headline run, each counted from 0 just before it, and its batches."""
+    headline run, each counted from 0 just before it, and its batches; K7
+    and its add must launch once a batch on each run."""
     import torch
 
     from ldpc_tpu_torch.ops.mc_kernels import LLR_KERNEL, MC_KERNEL
+    from ldpc_tpu_torch.ops.metrics import ADD_COUNTERS, BATCH_COUNTERS
     from ldpc_tpu_torch.ops.qam_channel import QAM_CHANNEL
     from ldpc_tpu_torch.ops.qc_kernels import QC_KERNEL
     from ldpc_tpu_torch.sim.config import SimOptions
     from ldpc_tpu_torch.sim.results import SimulationResult
     from ldpc_tpu_torch.sim.runner import PointExecutor, load_code, run_simulation
+    from ldpc_tpu_torch.utils import timing
 
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1053,7 +1259,8 @@ def phase_unfused(dev):
         """``run_simulation`` over the points, its own per-point lines
         (FER, BER, codewords/s and info bits/s) in the log; K3 must launch
         once per batch and K1 / K2 never, or, ``via_fused``, K1 must launch
-        and K3 never; K6 once per batch under QAM, else never."""
+        and K3 never; K6 once per batch under QAM, else never; K7 and its
+        add once per batch, as the run's ``batches`` counter has them."""
         opts = SimOptions(matrix=W1152, blocks=batches * BATCH, ber=True,
                           fer=True, fidelity="exact", speed=0.5, batch=BATCH,
                           seed=7, initial_snr=initial, end_snr=end,
@@ -1068,7 +1275,8 @@ def phase_unfused(dev):
                                      "end_snr": initial, "output_json": None,
                                      "quiet": True}), code)
         torch.cuda.synchronize()
-        for k in (QC_KERNEL, MC_KERNEL, LLR_KERNEL, QAM_CHANNEL):
+        for k in (QC_KERNEL, MC_KERNEL, LLR_KERNEL, QAM_CHANNEL,
+                  BATCH_COUNTERS, ADD_COUNTERS):
             k.launches = 0
         t0 = time.perf_counter()
         res = run_simulation(opts, code)
@@ -1077,7 +1285,16 @@ def phase_unfused(dev):
         launches = {"qc_decoder": QC_KERNEL.launches,
                     "mc_decoder": MC_KERNEL.launches,
                     "llr_decoder": LLR_KERNEL.launches,
-                    "qam_channel": QAM_CHANNEL.launches}
+                    "qam_channel": QAM_CHANNEL.launches,
+                    "batch_counters": BATCH_COUNTERS.launches,
+                    "add_counters": ADD_COUNTERS.launches}
+        counted = timing.units(timing.RECORDER.spans,
+                               "run_simulation")[-1][0].attrs["batches"]
+        if (launches["batch_counters"], launches["add_counters"]) != \
+                (counted,) * 2:
+            fail(f"{tag}: batch_counters / add_counters launched "
+                 f"{launches['batch_counters']} / {launches['add_counters']} "
+                 f"times for {counted} batches")
         back = SimulationResult.from_json(str(out_dir / f"{tag}.json"))
         if [vars(p) for p in back.snr_points] != [vars(p) for p in res.snr_points]:
             fail(f"{tag}: the JSON read back differs from the result")
@@ -3368,7 +3585,10 @@ def main(argv=None) -> int:
     phase_refill(dev, smi, peak)
 
     # ---- 4. the main path: as 'auto' chooses, then with the split forced ----
-    launches = {"mc_decoder": 0, "llr_decoder": 0}
+    from ldpc_tpu_torch.ops.metrics import ADD_COUNTERS, BATCH_COUNTERS
+    from ldpc_tpu_torch.utils import timing
+
+    launches = {"mc_decoder": 0, "llr_decoder": 0, "batch_counters": 0}
     results = {}
     for two_phase in ("auto", str(PHASE1)):
         opts = SimOptions(
@@ -3381,21 +3601,30 @@ def main(argv=None) -> int:
         ex.run_point(SNR_DB, 2 * BATCH, point_index=99)  # warm: probe + choice
         MC_KERNEL.launches = 0
         LLR_KERNEL.launches = 0
+        BATCH_COUNTERS.launches = ADD_COUNTERS.launches = 0
         t0 = time.perf_counter()
         st = ex.run_point(SNR_DB, MAIN_BATCHES * BATCH)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         run = {"mc_decoder": MC_KERNEL.launches,
-               "llr_decoder": LLR_KERNEL.launches}
+               "llr_decoder": LLR_KERNEL.launches,
+               "batch_counters": BATCH_COUNTERS.launches}
+        batches = timing.units(timing.RECORDER.spans,
+                               "run_point")[-1][0].attrs["batches"]
         fer = st.fer_frames / st.blocks
         sigma = math.sqrt(REF_FER * (1 - REF_FER) / st.blocks)
         log(f"main path two_phase={two_phase}: {st.blocks} frames in "
             f"{elapsed:.4f} s = {st.blocks * k / elapsed:.6g} info bits/s, "
             f"FER {fer:.6f} (ref {REF_FER}, 5 sigma {5 * sigma:.6f}), "
             f"BER {st.error_bits / (st.blocks * k):.3e}, "
-            f"kernel {ex.kernel_used}, probe {ex.last_probe}, launches {run}")
+            f"kernel {ex.kernel_used}, probe {ex.last_probe}, launches {run}"
+            f" (add_counters {ADD_COUNTERS.launches}) over {batches} batches")
         if st.blocks != MAIN_BATCHES * BATCH:
             fail(f"main path counted {st.blocks} frames")
+        if (run["batch_counters"], ADD_COUNTERS.launches) != (batches,) * 2:
+            fail(f"main path ran {batches} batches but batch_counters / "
+                 f"add_counters launched {run['batch_counters']} / "
+                 f"{ADD_COUNTERS.launches} times")
         if run["mc_decoder"] < 1:
             fail("mc_decoder was not launched on the main path")
         if "+2phase(auto:off)" not in ex.kernel_used and run["llr_decoder"] < 1:
@@ -3488,6 +3717,8 @@ def main(argv=None) -> int:
     QC_KERNEL.launches = 0
     qc_err, kept = phase_qc_compare(dev)
     k6 = phase_qam_channel(dev, smi)
+    k7 = phase_batch_counters(dev, smi)
+    k7["launches"] = launches["batch_counters"]  # phase 4's, a batch each
     qc_launches, k6["launches"], qc_batches = phase_unfused(dev)
     qc_times = phase_qc_timing(kept, peak)
     phase_fused_fer()
@@ -3567,6 +3798,7 @@ def main(argv=None) -> int:
          "bound_by": qc_times["layered spa-12 serial (16-QAM)"][3],
          "library_ms": None},
         k6,
+        k7,
         *roof["kernels"],
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
 directory ``.gitignore`` lists; ``utils.cache.enable_compile_cache`` moves
 it through :func:`set_build_dir`): K1, K2 and K3 are one source each over the
-shared decode body ``csrc/decode_group.cuh``, K6 (the QAM channel) one on its
-own. The hash covers the source,
+shared decode body ``csrc/decode_group.cuh``, K6 (the QAM channel) and K7
+(a batch's counters) one each on their own. The hash covers the source,
 the headers of ``csrc``, the flags and the library's own ``-D`` defines, so
 an edited source or header builds anew and one source can give several
 libraries (K5's schedule is baked in by defines).
@@ -38,7 +38,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 DEFAULT_BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline",
-           "qam_channel")
+           "qam_channel", "batch_counters")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -223,3 +223,24 @@ class Kernel:
                 f"{self.symbol} failed: {err(rc).decode()} (cudaError {rc})"
             )
         self.launches += 1
+
+
+def check_arg(t, name: str, dtype, shapes: tuple, device,
+              none_ok: bool = False) -> None:
+    """Raise ValueError unless tensor ``t`` has ``dtype`` (or one of a tuple
+    of dtypes), one of ``shapes``, is contiguous and on ``device`` (or is
+    None, where ``none_ok``): what a wrapper checks before it hands a kernel
+    raw pointers."""
+    if t is None:
+        if none_ok:
+            return
+        raise ValueError(f"{name} is missing")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) not in shapes:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         + " or ".join(str(sh) for sh in shapes))
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.models.qc import QCLayout
-from ldpc_tpu_torch.ops.build import Kernel
+from ldpc_tpu_torch.ops.build import Kernel, check_arg
 from ldpc_tpu_torch.ops.channel import CONSTS_ORDER
 from ldpc_tpu_torch.ops.decode_loop import (
     DecodeLoop,
@@ -600,24 +600,13 @@ class DecodeConfig:
 
 class _FusedBase(DecodeConfig):
     """What both fused decoders share beyond :class:`DecodeConfig`: the
-    error count and the argument checks."""
+    error count and the outputs."""
 
     def _count_errors(self, L: torch.Tensor, wT: torch.Tensor) -> torch.Tensor:
         _, info, _, _ = self._dev(L.device)
         est = L.index_select(0, info) < 0
         x = wT.index_select(0, info) != 0
         return (est != x).sum(dim=0).to(torch.int32)
-
-    @staticmethod
-    def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-        if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, expected {device}")
-        if x.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
-            raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
     @staticmethod
     def _outputs(B: int, device):
@@ -757,11 +746,11 @@ class MCDecoder(_FusedBase):
     def _launch(self, wT, consts, seeds, raw, skip, b0, idle):
         dev = wT.device
         n, B = self.qc.n, wT.shape[1]
-        self._check("wT", wT, torch.float32, (n, B), dev)
-        self._check("consts", consts, torch.float32, (8,), dev)
+        check_arg(wT, "wT", torch.float32, ((n, B),), dev)
+        check_arg(consts, "consts", torch.float32, ((8,),), dev)
         if raw is not None:
-            self._check("raw", raw, (torch.uint32, torch.int32),
-                        (DRAWS_PER_BIT[self.mode], n, B), dev)
+            check_arg(raw, "raw", (torch.uint32, torch.int32),
+                      ((DRAWS_PER_BIT[self.mode], n, B),), dev)
             key = (0, 0)
         elif seeds is None:
             raise ValueError("pass raw words or Philox seeds")
@@ -779,7 +768,7 @@ class MCDecoder(_FusedBase):
             grid = self.grid(B, dev)
             ticket = torch.empty(1, dtype=torch.int32, device=dev)
             if idle is not None:
-                self._check("idle", idle, torch.float64, (1,), dev)
+                check_arg(idle, "idle", torch.float64, ((1,),), dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             MC_KERNEL(
@@ -836,9 +825,9 @@ class LLRDecoder(_FusedBase):
     def _launch(self, llrT, wT, done0):
         dev = llrT.device
         n, B = self.qc.n, llrT.shape[1]
-        self._check("llrT", llrT, torch.float32, (n, B), dev)
-        self._check("wT", wT, torch.float32, (n, B), dev)
-        self._check("done0", done0, torch.float32, (B,), dev)
+        check_arg(llrT, "llrT", torch.float32, ((n, B),), dev)
+        check_arg(wT, "wT", torch.float32, ((n, B),), dev)
+        check_arg(done0, "done0", torch.float32, ((B,),), dev)
         outs = self._outputs(B, dev)
         if B == 0:  # nothing to launch
             return outs

@@ -32,7 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ldpc_tpu_torch.ops.build import Kernel
+from ldpc_tpu_torch.ops.build import Kernel, check_arg
 from ldpc_tpu_torch.ops.channel import draw_normal, draw_uniform, make_channel_fn
 from ldpc_tpu_torch.ops.interleave import (
     make_interleaver,
@@ -94,7 +94,7 @@ class QAMChannel:
 
     def __call__(self, gen_il: torch.Generator, gen_ch: torch.Generator,
                  w: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
-        _check(w, "w", torch.float32, ((_rows(w), self.n),), w.device)
+        check_arg(w, "w", torch.float32, ((_rows(w), self.n),), w.device)
         if w.device.type == "cpu":
             return self.plain(gen_il, gen_ch, w, consts)
         if w.device.type != "cuda":
@@ -128,18 +128,18 @@ class QAMChannel:
                 f"channel kernel: {self.smem} bytes of shared memory (at most "
                 f"{_SMEM_LIMIT})")
         dev, B = w.device, _rows(w)
-        _check(w, "w", torch.float32, ((B, self.n),), dev)
-        _check(pi, "pi", torch.int64, ((self.n,), (B, self.n)), dev,
+        check_arg(w, "w", torch.float32, ((B, self.n),), dev)
+        check_arg(pi, "pi", torch.int64, ((self.n,), (B, self.n)), dev,
                none_ok=True)
         if (jam is None) == (self.mode == 2):
             raise ValueError(f"jam is {'missing' if jam is None else 'given'}"
                              f" under channel mode {self.mode}: the jam "
                              "uniforms go with mode 2 alone")
         sym = ((B, self.n_sym),)
-        _check(jam, "jam", torch.float32, sym, dev, none_ok=True)
-        _check(z_i, "z_i", torch.float32, sym, dev)
-        _check(z_q, "z_q", torch.float32, sym, dev)
-        _check(consts, "consts", torch.float32, ((8,),), dev)
+        check_arg(jam, "jam", torch.float32, sym, dev, none_ok=True)
+        check_arg(z_i, "z_i", torch.float32, sym, dev)
+        check_arg(z_q, "z_q", torch.float32, sym, dev)
+        check_arg(consts, "consts", torch.float32, ((8,),), dev)
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
         out = torch.empty_like(w)
@@ -163,21 +163,3 @@ def _rows(w: torch.Tensor) -> int:
     another rank."""
     return w.shape[0] if w.dim() == 2 else -1
 
-
-def _check(t: torch.Tensor | None, name: str, dtype: torch.dtype,
-           shapes: tuple, device: torch.device, none_ok: bool = False) -> None:
-    """Raise ValueError unless ``t`` has ``dtype``, one of ``shapes``, is
-    contiguous and on ``device`` (or is None, where ``none_ok``)."""
-    if t is None:
-        if none_ok:
-            return
-        raise ValueError(f"{name} is missing")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) not in shapes:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         + " or ".join(str(sh) for sh in shapes))
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -35,7 +35,8 @@ key splits into three generators (info bits, interleaver, channel):
 6. ``block_stats``, which applies the same BER rule.
 
 Either way a batch's counters are packed (:meth:`PointExecutor.packed`) and
-summed on the device (``ops.metrics.add_packed``), and fetched totals become
+summed on the device (``ops.metrics.add_packed``), one K7 launch each on the
+card (``ops.metrics.batch_counters``), and fetched totals become
 ``PointStats`` (``PointStats.add``), in ``run_point`` and the parallel sweep.
 
 ``fused='auto'`` takes the fused path wherever :func:`choose_route` finds it
@@ -95,14 +96,15 @@ from ldpc_tpu_torch.ops.mc_kernels import (
     MCDecoder,
 )
 from ldpc_tpu_torch.ops.metrics import (
+    ADD_COUNTERS,
+    BATCH_COUNTERS,
     SLOTS,
     BlockCounters,
     BlockStats,
     add_packed,
+    batch_counters,
     block_stats,
     failed_frame_errors,
-    pack_counters,
-    reduce_block_stats,
     unpack_counters,
 )
 from ldpc_tpu_torch.ops.qam_channel import QAM_CHANNEL, QAMChannel
@@ -747,9 +749,8 @@ class PointExecutor:
     def packed(self, stats: BlockStats, iters: torch.Tensor,
                take: int) -> torch.Tensor:
         """int32[8] counters of this rank's rows among the first ``take``
-        codewords of a batch."""
-        valid = torch.arange(*self._rows, device=self.device) < take
-        return pack_counters(reduce_block_stats(stats, valid), iters.max())
+        codewords of a batch (one K7 launch on the card)."""
+        return batch_counters(stats, iters, self._rows[0], take)
 
     # ----------------------------------------------------------- two-phase --
 
@@ -1137,7 +1138,7 @@ def run_simulation(
     its ``batch`` axis; the counters equal an unmeshed run's.
     ``device=None`` means the card. With ``opts.profile``, the recorded
     spans and counters (:mod:`ldpc_tpu_torch.utils.timing`) and the
-    kernels' launch counts (K1-K3, K6) go to ``<profile>/spans.json`` when
+    kernels' launch counts (K1-K3, K6, K7) go to ``<profile>/spans.json`` when
     the sweep ends."""
     with timing.span("run_simulation"):
         result = _sweep(opts, code, mesh, device)
@@ -1147,7 +1148,7 @@ def run_simulation(
             os.path.join(opts.profile, "spans.json"),
             launches={k.symbol: k.launches
                       for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL,
-                                QAM_CHANNEL)})
+                                QAM_CHANNEL, BATCH_COUNTERS, ADD_COUNTERS)})
     return result
 
 
@@ -1352,7 +1353,6 @@ def run_simulation_parallel(
                 f[s] = stats_list[s].fer_frames >= opts.target_errors
         return f
 
-    arange_b = torch.arange(B, device=device)
     with _profiled_sweep(opts.profile, device):
         while remaining > 0:
             finished = finished_mask()
@@ -1361,13 +1361,12 @@ def run_simulation_parallel(
             take = min(remaining, B)
             keys = [derive_key(k, batch_idx) for k in point_keys]
             stats, iters = sweep(keys, consts, finished.tolist())
-            valid = arange_b < take
             live = np.flatnonzero(~finished).tolist()
             totals = torch.zeros(len(live), len(SLOTS), dtype=torch.float64,
                                  device=device)
             add_packed(totals, torch.stack([
-                pack_counters(reduce_block_stats(
-                    BlockStats(*(x[s] for x in stats)), valid), iters[s])
+                batch_counters(BlockStats(*(x[s] for x in stats)), iters[s],
+                               0, take)
                 for s in live]))
             for s, row in zip(live, totals.tolist()):  # one fetch a batch
                 executor.total_iters_run += stats_list[s].add(row)

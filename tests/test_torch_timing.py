@@ -203,6 +203,7 @@ def test_profiled_sweep_writes_spans(rec, tmp_path):
     d = json.loads((out / "spans.json").read_text())
     assert d["ring"] == timing.RING and "mc_decoder_launch" in d["launches"]
     assert "qam_channel_launch" in d["launches"]
+    assert {"batch_counters_launch", "add_counters_launch"} <= set(d["launches"])
     root, = [s for s in d["spans"] if s["name"] == "run_simulation"]
     unit = [s for s in d["spans"] if s["unit"] == root["id"]]
     points = [s for s in unit if s["name"] == "point"]
