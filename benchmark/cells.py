@@ -20,8 +20,9 @@ and traffic. The files are:
 A later cell, configuration, code family or metric is a new file and a new
 entry in ``BENCHMARK.json``; no existing file changes, as long as the plain
 reference already decodes what the cell runs: a quasi-cyclic code under
-layered sum-product, on the fused BPSK path or the unfused channel, as
-streaming calls or as sweeps of ``run_simulation``.
+layered or flooding sum-product (``options.schedule``, flooding where it is
+left out, as in the simulator), on the fused BPSK path or the unfused
+channel, as streaming calls or as sweeps of ``run_simulation``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# the schedules the plain reference decodes
+SCHEDULES = ("flooding", "layered")
 
 
 @dataclass
@@ -55,6 +58,22 @@ def _json(path: Path) -> dict:
         return json.load(f)
 
 
+def schedule(config: dict) -> str:
+    """The schedule a configuration decodes: ``options["schedule"]``, or the
+    simulator's default, flooding, where the options leave it out. Stops if
+    the reference has no decoder for it or ``decoder.schedule`` states
+    another."""
+    sched = config["options"].get("schedule") or "flooding"
+    if sched not in SCHEDULES:
+        raise SystemExit(f"schedule {sched!r} is not one of "
+                         f"{', '.join(SCHEDULES)} (benchmark/reference/)")
+    stated = config.get("decoder", {}).get("schedule", sched)
+    if stated != sched:
+        raise SystemExit(f"the configuration's decoder states schedule "
+                         f"{stated!r}; its options run {sched!r}")
+    return sched
+
+
 def load(name: str, root: Path = ROOT) -> Cell:
     spec = _json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in spec["workloads"]}
@@ -64,9 +83,11 @@ def load(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
     here = root / "benchmark"
+    config = _json(root / cfg["file"])
+    schedule(config)  # a schedule without a reference stops before set-up
     return Cell(
         name=name, chips=int(w["chips"]),
-        config=_json(root / cfg["file"]),
+        config=config,
         traffic=_json(here / "traffic" / f"{w['traffic']}.json"),
         check=_json(here / "workloads" / f"{name}.json"),
         end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],

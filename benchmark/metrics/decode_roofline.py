@@ -10,6 +10,7 @@ and its outputs (K3 adds its hard decisions). The larger of the two least
 times, at the card's published peaks, is the bound."""
 
 from benchmark import census
+from benchmark.cells import schedule
 from benchmark.trace import is_decode
 
 
@@ -22,7 +23,7 @@ def read(ctx):
     code, frames = ctx.code, tot["frames"]
     sweeps = census.total_sweeps(frames, tot["converged"], tot["conv_sum"],
                                  o["iterations"])
-    ops = census.decode_census(code, "spa", o["schedule"],
+    ops = census.decode_census(code, "spa", schedule(ctx.config),
                                check_every=o.get("check_every", 1)).total()
     ops *= sweeps
     if ctx.fused:

@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import torch
 
+from benchmark.cells import schedule
 from benchmark.reference import channel, codes, rng
 from benchmark.reference.decoder import LayeredSPA
+from benchmark.reference.flooding import FloodingSPA
 
 COUNTERS = ("frames", "frame_errors", "bit_errors", "converged", "conv_sum")
 # batches decoded together: 16 x 4096 frames of WiMAX 1152 fit the card
@@ -40,10 +42,16 @@ class Reference:
         info, _, _ = self.code.systematic
         self.info = torch.as_tensor(info, device=self.device)
         self.G = torch.as_tensor(self.code.generator(), device=self.device)
-        order = (self.code.paired_order() if o.get("layer_order") == "paired"
-                 else list(range(self.code.mb)))
-        self.decoder = LayeredSPA(self.code, order, o["iterations"],
-                                  o.get("check_every", 1), self.device, dtype)
+        every = o.get("check_every", 1)
+        if schedule(config) == "flooding":
+            self.decoder = FloodingSPA(self.code, o["iterations"], every,
+                                       self.device, dtype)
+        else:
+            order = (self.code.paired_order()
+                     if o.get("layer_order") == "paired"
+                     else list(range(self.code.mb)))
+            self.decoder = LayeredSPA(self.code, order, o["iterations"],
+                                      every, self.device, dtype)
         self.fused = o.get("modulation", 1) == 1 and \
             o.get("interleaver", "none") == "none"
         # the split is decided by a probe batch at each point's start

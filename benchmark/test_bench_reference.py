@@ -14,6 +14,7 @@ from benchmark import cells, check
 from benchmark.harness import unit_key
 from benchmark.reference import channel, codes, rng
 from benchmark.reference.codes.ieee802_16e import wimax
+from benchmark.reference.flooding import FloodingSPA
 from benchmark.reference.sim import Reference
 
 # several test processes share the host: one or two threads each
@@ -50,6 +51,29 @@ def ccsds128() -> cells.Cell:
     c.traffic["snr_db"] = 1.5
     return c
 
+
+def flooding(c: cells.Cell, two_phase="auto") -> cells.Cell:
+    """The configuration of ``c`` decoded by flooding SPA-16 with a check
+    every sweep, as the simulator runs it by default: a configuration that
+    is no cell."""
+    fields = dict(schedule="flooding", iterations=16, two_phase=two_phase)
+    c.config["options"].update(fields, check_every=1)
+    c.config["decoder"].update(fields, syndrome_check_every=1)
+    del c.config["options"]["layer_order"], c.config["decoder"]["layer_order"]
+    return c
+
+
+# configurations that are no cell, each by a name of its own
+NO_CELL = {
+    "ccsds128-bpsk-1p5db": ccsds128,
+    "w1152-bpsk-flood16-2db": lambda: flooding(small("w1152-bpsk-2db")),
+    "w1152-bpsk-flood16-split8-2db":
+        lambda: flooding(small("w1152-bpsk-2db"), two_phase=8),
+    "w1152-bpsk-flood16-sweep": lambda: flooding(small("w1152-bpsk-sweep")),
+    "ccsds128-bpsk-flood16-1p5db": lambda: flooding(ccsds128()),
+    "w1152-16qam-jam-flood16-5p5db":
+        lambda: flooding(small("w1152-16qam-jam-5p5db")),
+}
 
 # (family, n, Z, the port's built-in of that code)
 PORT_CODES = [("ieee802_16e", n, n // 24, f"wimax_{n}_0.5.alist.txt")
@@ -134,12 +158,111 @@ def _port_and_reference(c: cells.Cell, ref: Reference):
     return outs, check.reference_units(ref, c.traffic, keys)
 
 
-@pytest.mark.parametrize("name", CELLS + ("ccsds128-bpsk-1p5db",))
+@pytest.mark.parametrize("name", CELLS + tuple(NO_CELL))
 def test_reference_equals_the_port(name):
-    c = ccsds128() if name == "ccsds128-bpsk-1p5db" else small(name)
+    c = NO_CELL[name]() if name in NO_CELL else small(name)
     outs, refs = _port_and_reference(c, Reference(c.config, "cpu"))
     assert outs == refs
     assert sum(p["frame_errors"] for u in refs for p in u) > 0
+
+
+def test_schedule_is_chosen_in_one_place(tmp_path):
+    spec = json.loads((cells.ROOT / "BENCHMARK.json").read_text())
+    for c in spec["configs"]:
+        cfg = cells._json(cells.ROOT / c["file"])
+        sched = cells.schedule(cfg)
+        assert sched == (cfg["options"].get("schedule") or "flooding")
+        assert sched in cells.SCHEDULES
+    assert cells.schedule({"options": {}}) == "flooding"
+    assert cells.schedule({"options": {"schedule": None},
+                           "decoder": {"schedule": "flooding"}}) == "flooding"
+    with pytest.raises(SystemExit, match="'serial-c' is not one of "
+                                         "flooding, layered"):
+        cells.schedule({"options": {"schedule": "serial-c"}})
+    with pytest.raises(SystemExit, match="decoder states schedule 'layered'; "
+                                         "its options run 'flooding'"):
+        cells.schedule({"options": {}, "decoder": {"schedule": "layered"}})
+    # a cell whose schedule has no reference stops when it loads
+    c = spec["configs"][0]
+    cfg = cells._json(cells.ROOT / c["file"])
+    cfg["options"]["schedule"] = cfg["decoder"]["schedule"] = "serial-c"
+    (tmp_path / c["file"]).parent.mkdir(parents=True)
+    (tmp_path / c["file"]).write_text(json.dumps(cfg))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    cell = next(w["name"] for w in spec["workloads"]
+                if w["config"] == c["name"])
+    with pytest.raises(SystemExit, match="'serial-c' is not one of"):
+        cells.load(cell, root=tmp_path)
+
+
+def test_default_schedule_is_flooding_on_both_sides():
+    """A configuration that names no schedule decodes flooding in the port
+    (the simulator's default) and in the reference alike."""
+    c = flooding(small("w1152-bpsk-2db"))
+    del c.config["options"]["schedule"], c.config["decoder"]["schedule"]
+    ref = Reference(c.config, "cpu")
+    assert isinstance(ref.decoder, FloodingSPA)
+    outs, refs = _port_and_reference(c, ref)
+    assert outs == refs
+    assert sum(p["frame_errors"] for u in refs for p in u) > 0
+
+
+@pytest.mark.parametrize("family, n, z, builtin",
+                         [PORT_CODES[1], PORT_CODES[3]])
+def test_flooding_posteriors_equal_the_port_bit_for_bit(family, n, z,
+                                                        builtin):
+    """The posteriors after every codeword has stopped, bit for bit: at the
+    tests' sizes the counters do not see a posterior summed in another
+    order."""
+    from ldpc_tpu_torch.ops.decode_loop import DecodeLoop, build_tables
+    from ldpc_tpu_torch.sim.runner import load_code
+
+    code = codes.build({"family": family, "rate": "1/2", "n": n,
+                        "k": n // 2, "z": z})
+    B, sigma = 64, 0.8
+    g = torch.Generator().manual_seed(n)
+    y = 1.0 + sigma * torch.randn((n, B), generator=g)  # the zero codeword
+    ours, port = (2.0 / sigma ** 2) * y, (2.0 / sigma ** 2) * y
+    ok, conv = FloodingSPA(code, 16, 1, "cpu").decode(ours)
+    loop = DecodeLoop(build_tables(load_code(f"builtin:{builtin}").qc), 16,
+                      "spa", check_every=1, schedule="flooding")
+    done, conv_port, _ = loop.run(port, torch.zeros(B, dtype=torch.bool))
+    assert torch.equal(ours, port)
+    assert torch.equal(ok, done) and torch.equal(conv, conv_port)
+    assert 0 < int(ok.sum()) < B
+
+
+def _in_place(dec):
+    """Each row writes its posteriors q + E' back during the check phase, so
+    later rows read them: a layered update under a flooding label."""
+    def check_phase(L, E, live):
+        Z, B = dec.Z, L.shape[1]
+        for lo, d, idx in dec.rows:
+            old, e_old = L[idx], E[lo:lo + d]
+            q = old.view(d, Z, B) - e_old
+            e_new = dec._check(q)
+            L[idx] = torch.where(live, (q + e_new).view(d * Z, B), old)
+            E[lo:lo + d] = torch.where(live, e_new, e_old)
+    return check_phase
+
+
+def _without_extrinsic(dec):
+    """The check phase reads the posteriors whole, without the ``- E``."""
+    def check_phase(L, E, live):
+        Z, B = dec.Z, L.shape[1]
+        for lo, d, idx in dec.rows:
+            E[lo:lo + d] = torch.where(live, dec._check(L[idx].view(d, Z, B)),
+                                       E[lo:lo + d])
+    return check_phase
+
+
+@pytest.mark.parametrize("fault", [_in_place, _without_extrinsic])
+def test_flooding_fault_differs_from_the_port(fault):
+    c = flooding(small("w1152-bpsk-2db"))
+    ref = Reference(c.config, "cpu")
+    ref.decoder.check_phase = fault(ref.decoder)
+    outs, refs = _port_and_reference(c, ref)
+    assert check.gaps(outs, refs)["counter_gap"][0] > 0
 
 
 def test_last_write_wins_differs_from_the_port():
