@@ -468,6 +468,8 @@ class PointExecutor:
             step_vmapped=step_vmapped)
         self.fused, self.phase1 = self.route.fused, self.route.phase1
         self.kernel_used = self.route.kernel
+        self.schedule = self.route.loop_kw["schedule"]
+        timing.annotate(schedule=self.schedule)
 
         spec = code.encode_spec(opts.encoding_method, opts.ru_gap)
         info_pos = spec.info_pos(self.graph)
@@ -491,6 +493,8 @@ class PointExecutor:
         # call's lane trips (its codewords' block trips, or, where K1
         # refills, their own trips and the launch's tail idle)
         self._lane_trips = False
+        # bytes of the X rows of one flooding K1 or K2 launch (0 elsewhere)
+        self._x_row = 0
         self.last_probe: dict = {}
         self._two_phase_choice: dict[float, bool] = {}
         self._overhead_us = None
@@ -511,6 +515,8 @@ class PointExecutor:
                                   variant, **mc_kw)
         self.lanes = self._mc_full.lanes
         self._lane_trips = self.lanes > 1
+        if self._mc_full.flood:  # f32 [local batch, n] (``_buffers``)
+            self._x_row = 4 * code.n * self.local_batch
         if self.phase1:
             self._mc1 = MCDecoder(code.qc, info_pos, self.phase1, variant,
                                   emit_llr=True, **mc_kw)
@@ -861,8 +867,12 @@ class PointExecutor:
         ``run_point(s, b, start_batch=a // batch)`` when ``a`` is a whole
         number of batches.
 
-        Counters on the unit's root span: ``batches``, ``frames``,
-        ``fetches``; ``split_batches`` (the batches run as a split) where a
+        The unit's root span carries the ``schedule`` decoded and the
+        counters ``batches``, ``frames``, ``fetches``; ``x_row_bytes`` on
+        the fused path under flooding (4 n bytes, the f32 row of channel
+        LLRs that K1 writes and re-reads each sweep, for each row of every
+        batch's K1 launch and a split batch's K2 launch, the probe's batch
+        included; counted on the host from the batches); ``split_batches`` (the batches run as a split) where a
         split is possible; ``lane_trips`` (every sweep of every codeword's
         lanes: its block's trips, or, where K1 refills, its own trips and
         each launch's tail idle; summed on the card and read by the flush's
@@ -871,7 +881,7 @@ class PointExecutor:
         pass's grid; 0 where the batch fits one wave) where K1 can refill.
         A partial last batch adds the trips of its counted rows only, but
         where K1 refills, the tail idle of its whole launch."""
-        with timing.span("run_point", snr=snr_db):
+        with timing.span("run_point", snr=snr_db, schedule=self.schedule):
             consts = self.consts(snr_db)
             key_point = derive_key(
                 self.opts.seed if base_key is None else base_key, point_index)
@@ -955,6 +965,9 @@ class PointExecutor:
             timing.count("frames", blocks - remaining)
             if self.phase1:
                 timing.count("split_batches", split)
+            if self._x_row:
+                timing.count("x_row_bytes",
+                             self._x_row * (batch_idx - start_batch + split))
             if self.fused and self._mc_full.refill:
                 # a launch's, in each single-pass batch
                 timing.count("refills", self._mc_full.refills(

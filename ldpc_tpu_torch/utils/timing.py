@@ -6,7 +6,7 @@ id of the span open around it (None for a root), its unit (the root's id:
 every span of one ``run_point`` call or one ``run_simulation`` sweep shares
 it), its start and end on ``time.perf_counter_ns`` and a few attributes.
 Counters (batches, frames, host fetches, probes, overhead measures, split
-batches, lane trips) are kept per unit, on the root span's attributes;
+batches, lane trips, X-row bytes) are kept per unit, on the root span's attributes;
 :func:`annotate` sets attributes of the innermost open span. Finished spans
 go to a ring of :data:`RING` spans, so a long run cannot grow without limit.
 

@@ -109,7 +109,8 @@ def test_per_batch_tier_is_off_without_a_profiler(rec):
     trips = sum(int(ex.step(derive_key(key, i), ex.consts(3.0))[1].sum())
                 for i in range(2))
     assert ex.lanes == 8 and ex._mc_full.refill
-    assert root.attrs == {"snr": 3.0, "fetches": 1, "batches": 2,
+    assert root.attrs == {"snr": 3.0, "schedule": "layered", "fetches": 1,
+                          "batches": 2,
                           "frames": 2 * B, "lane_trips": trips,
                           "refills": 0}
     with timing.batch_spans():
