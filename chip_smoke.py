@@ -55,8 +55,8 @@ Phases:
    split forced at 6 phase-1 iterations (phase 2 is ``llr_decoder``). The
    launch counts are zeroed just before each run and read just after; each
    run must launch the kernels its dispatch uses, both kernels must have
-   launched, and K7 and its add must each launch once a batch of the run's
-   ``batches`` counter (the ``kernels`` line's K7 count). The two runs draw the same frames, and the decode works
+   launched, and K7, its add and K8 must each launch once a batch of the
+   run's ``batches`` counter (the ``kernels`` line's K7 and K8 counts). The two runs draw the same frames, and the decode works
    lane by lane, so their counters must be equal. FER must lie within 5
    standard errors of 0.0065, the JAX package's FER at this point
    (``BENCH_r04.json``), used as a statistic of the code, not as a speed.
@@ -114,6 +114,18 @@ Phases:
    with CUDA events (launches queued behind a device sleep, so that the card
    runs them back to back) beside its bound by bytes, and the host's time a
    batch to enqueue both launches against the plain operators'.
+   6d. K8 ``gf2_encode`` (the GF(2) encode in one kernel) against its plain
+   version, the f32 product mod 2 it replaced, bit for bit: wimax 1152 at
+   4096 frames in both layouts ([n, B] for K1 / K2, [B, n] for the unfused
+   path) and both graphs; CCSDS (128, 64) at 131,072 frames; a ragged slice at a shard's
+   row offset; info bits misaligned for its 16-byte loads; ITU-T G.hn
+   (336, 168), whose k is not a multiple of 32; a random code of k = 1100
+   (two word tiles). Its ``ptxas`` line. Then ``ENCODE.launches`` equals the
+   ``batches`` counter of a fused and of an unfused ``run_point``, the
+   probe's batch included. Then K8 timed with CUDA events (20 launches
+   queued behind a device sleep) beside its bound by bytes and by
+   operations (each priced at its pipe) and its plain version, the f32 GEMM
+   + cast + remainder (``plain_ms`` and ``library_ms``).
 7. The unfused path through ``run_simulation``: the burst-interleaver
    configuration at wimax 1152 (16-QAM, mode-2 jamming p 0.15 at -3 dB,
    random interleaver, layered SPA-12), 3 SNR points (5.0, 5.5, 6.0 dB) x 16
@@ -1222,6 +1234,138 @@ def phase_batch_counters(dev, smi: str) -> dict:
             "launches": launched[0], "max_abs_err": worst, "ms": t_k7,
             "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+class RandomSpec:
+    """A systematic code of random parity columns (P, a permuted domain):
+    what ``GF2Encoder`` reads of an encode spec, at any k and n."""
+
+    def __init__(self, k: int, n: int, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.P = (rng.random((k, n - k)) < 0.5).astype(np.float32)
+        self._map = rng.permutation(n)
+
+    def domain_map(self, graph: str):
+        return self._map
+
+
+def phase_encode(dev, smi: str, peak: float) -> dict:
+    """Phase 6d: K8 ``gf2_encode`` against its plain version, the f32
+    product mod 2, bit for bit; its engagement in a fused and an unfused
+    ``run_point``; its time. Returns the ``kernels`` entry."""
+    import torch
+
+    from ldpc_tpu_torch.ops import build
+    from ldpc_tpu_torch.ops.encode import ENCODE, make_encoder, make_encoder_T
+    from ldpc_tpu_torch.sim.config import SimOptions
+    from ldpc_tpu_torch.sim.runner import PointExecutor, load_code
+    from ldpc_tpu_torch.utils import timing
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ccsds = "builtin:CCSDS_ldpc_n128_k64.alist.txt"
+    ghn = "builtin:LDPC_N336_K196_ITU_G.h.alist.txt"
+
+    def bits(B, k, skew=0):
+        """uint8 0/1 [B, k], starting ``skew`` bytes into its storage."""
+        buf = torch.randint(0, 2, (B * k + skew,), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        return buf[skew:].view(B, k)
+
+    log("compare gf2_encode (equal bit for bit to its plain version, the f32 "
+        "product mod 2):")
+    wimax = load_code(W1152).standard_encode_spec
+    ghn = load_code(ghn).standard_encode_spec  # k = 168 of the name's 196
+    cases = []  # (tag, spec, graph, B, frames_minor, u)
+    for graph in ("orig", "std"):
+        for fm in (True, False):
+            cases.append((f"wimax 1152 {graph}", wimax, graph, BATCH, fm,
+                          bits(BATCH, 576)))
+    for fm in (True, False):
+        cases += [
+            ("ccsds", load_code(ccsds).standard_encode_spec, "orig", 131072,
+             fm, bits(131072, 64)),
+            ("wimax 1152 shard rows", wimax, "orig", 1000, fm,
+             bits(3000, 576)[1000:2000]),
+            ("wimax 1152 misaligned", wimax, "orig", 777, fm,
+             bits(777, 576, skew=3)),
+            ("g.hn k=168", ghn, "orig", BATCH, fm, bits(BATCH, 168)),
+            ("random k=1100 n=2000", RandomSpec(1100, 2000, 5), "orig", 300,
+             fm, bits(300, 1100)),
+        ]
+    launches0 = ENCODE.launches
+    for tag, spec, graph, B, fm, u in cases:
+        make = make_encoder_T if fm else make_encoder
+        enc = make(spec, graph, dev)
+        got = enc(u)
+        plain = enc.plain(u)
+        sync()
+        layout = "[n, B]" if fm else "[B, n]"
+        same = torch.equal(got, plain)
+        log(f"  {tag} B={B} {layout}: {tuple(got.shape)} equal {same}, ones "
+            f"{float(got.mean()):.4f}")
+        if not same:
+            bad = (got != plain).nonzero()[:5].tolist()
+            fail(f"gf2_encode {tag} {layout} differs at {bad}")
+    if ENCODE.launches - launches0 != len(cases):
+        fail(f"gf2_encode launched {ENCODE.launches - launches0} times for "
+             f"{len(cases)} calls")
+    log("ptxas gf2_encode: " + ", ".join(
+        f"{k} {v}" for k, v in build.ptxas_report(
+            build.ptxas_log("gf2_encode")).items()))
+
+    # engagement: a launch a batch of a fused and of an unfused run_point
+    code = load_code(W1152)
+    launched = {}
+    for fused in ("auto", "off"):
+        opts = SimOptions(matrix=code.name, blocks=BATCH, iterations=ITERS,
+                          ber=True, fer=True, fidelity="exact", batch=BATCH,
+                          seed=0, speed=0.5, schedule="layered",
+                          layer_order="paired", check_every=CHECK_EVERY,
+                          fused=fused)
+        ex = PointExecutor(code, opts, device=dev)
+        n0 = ENCODE.launches
+        ex.run_point(SNR_DB, 5 * BATCH + 1000, point_index=6)
+        root = timing.units(timing.RECORDER.spans, "run_point")[-1][0]
+        launched[fused] = (ENCODE.launches - n0, root.attrs["batches"])
+        log(f"run_point fused={fused} ({ex.kernel_used}): gf2_encode "
+            f"launched {launched[fused][0]} times over "
+            f"{launched[fused][1]} batches (probe "
+            f"{root.attrs.get('probes', 0)})")
+        if launched[fused][0] != launched[fused][1]:
+            fail(f"run_point fused={fused} ran {launched[fused][1]} batches "
+                 f"but gf2_encode launched {launched[fused][0]} times")
+
+    # time: K8 against its bounds and its plain version, the product
+    times = {}
+    for tag, spec, B, fm in (("wimax 1152", wimax, BATCH, True),
+                             ("wimax 1152", wimax, BATCH, False),
+                             ("ccsds", load_code(ccsds).standard_encode_spec,
+                              131072, True)):
+        enc = (make_encoder_T if fm else make_encoder)(spec, "orig", dev)
+        u = bits(B, enc.k)
+        words, cols = enc.table.shape
+        t_k8 = time_queued_ms(lambda: enc(u), reps=20)
+        t_plain = time_queued_ms(lambda: enc.plain(u), reps=20)
+        nbytes = B * enc.k + 4 * enc.n * B + 4 * words * cols
+        # what the function needs, priced at its pipes in issue-peak slots:
+        # an AND-XOR (LOP3) a frame, column and word and the parity's AND at
+        # 64 a clock an SM (2 slots), a popcount an output bit at 16 (8)
+        ops = 2 * enc.n * B * (words + 1) + 8 * enc.n * B
+        bound, by = bound_ms(ops, nbytes, peak)
+        layout = "[n, B]" if fm else "[B, n]"
+        times[(tag, layout)] = (t_k8, bound, by, t_plain)
+        log(f"timing gf2_encode ({tag}, B={B}, {layout}; {smi}): "
+            f"{t_k8:.5f} ms (bound {bound:.5f} ms by {by}: {nbytes} bytes, "
+            f"{ops:.4g} issue slots; {100 * bound / t_k8:.1f}% of it); plain, "
+            f"the f32 GEMM + cast + remainder, {t_plain:.5f} ms")
+    t_k8, bound, by, t_plain = times[("wimax 1152", "[n, B]")]
+    return {"name": "gf2_encode", "route": "cuda",
+            "source": CSRC + "gf2_encode.cu", "replaces": None,
+            "launches": launched["auto"][0], "max_abs_err": 0.0, "ms": t_k8,
+            "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_plain}
 
 
 def five_se(errors: int, frames: int, ref: tuple[int, int]) -> tuple[float, float]:
@@ -3585,10 +3729,12 @@ def main(argv=None) -> int:
     phase_refill(dev, smi, peak)
 
     # ---- 4. the main path: as 'auto' chooses, then with the split forced ----
+    from ldpc_tpu_torch.ops.encode import ENCODE
     from ldpc_tpu_torch.ops.metrics import ADD_COUNTERS, BATCH_COUNTERS
     from ldpc_tpu_torch.utils import timing
 
-    launches = {"mc_decoder": 0, "llr_decoder": 0, "batch_counters": 0}
+    launches = {"mc_decoder": 0, "llr_decoder": 0, "batch_counters": 0,
+                "gf2_encode": 0}
     results = {}
     for two_phase in ("auto", str(PHASE1)):
         opts = SimOptions(
@@ -3602,13 +3748,15 @@ def main(argv=None) -> int:
         MC_KERNEL.launches = 0
         LLR_KERNEL.launches = 0
         BATCH_COUNTERS.launches = ADD_COUNTERS.launches = 0
+        ENCODE.launches = 0
         t0 = time.perf_counter()
         st = ex.run_point(SNR_DB, MAIN_BATCHES * BATCH)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         run = {"mc_decoder": MC_KERNEL.launches,
                "llr_decoder": LLR_KERNEL.launches,
-               "batch_counters": BATCH_COUNTERS.launches}
+               "batch_counters": BATCH_COUNTERS.launches,
+               "gf2_encode": ENCODE.launches}
         batches = timing.units(timing.RECORDER.spans,
                                "run_point")[-1][0].attrs["batches"]
         fer = st.fer_frames / st.blocks
@@ -3625,6 +3773,9 @@ def main(argv=None) -> int:
             fail(f"main path ran {batches} batches but batch_counters / "
                  f"add_counters launched {run['batch_counters']} / "
                  f"{ADD_COUNTERS.launches} times")
+        if run["gf2_encode"] != batches:
+            fail(f"main path ran {batches} batches but gf2_encode launched "
+                 f"{run['gf2_encode']} times")
         if run["mc_decoder"] < 1:
             fail("mc_decoder was not launched on the main path")
         if "+2phase(auto:off)" not in ex.kernel_used and run["llr_decoder"] < 1:
@@ -3719,6 +3870,8 @@ def main(argv=None) -> int:
     k6 = phase_qam_channel(dev, smi)
     k7 = phase_batch_counters(dev, smi)
     k7["launches"] = launches["batch_counters"]  # phase 4's, a batch each
+    k8 = phase_encode(dev, smi, peak)
+    k8["launches"] = launches["gf2_encode"]  # phase 4's, a batch each
     qc_launches, k6["launches"], qc_batches = phase_unfused(dev)
     qc_times = phase_qc_timing(kept, peak)
     phase_fused_fer()
@@ -3799,6 +3952,7 @@ def main(argv=None) -> int:
          "library_ms": None},
         k6,
         k7,
+        k8,
         *roof["kernels"],
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

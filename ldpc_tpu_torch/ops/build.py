@@ -4,11 +4,12 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/ldpc_tpu_torch/<name>-<hash>.so`` at the checkout's root (a
 directory ``.gitignore`` lists; ``utils.cache.enable_compile_cache`` moves
 it through :func:`set_build_dir`): K1, K2 and K3 are one source each over the
-shared decode body ``csrc/decode_group.cuh``, K6 (the QAM channel) and K7
-(a batch's counters) one each on their own. The hash covers the source,
-the headers of ``csrc``, the flags and the library's own ``-D`` defines, so
-an edited source or header builds anew and one source can give several
-libraries (K5's schedule is baked in by defines).
+shared decode body ``csrc/decode_group.cuh``, K6 (the QAM channel), K7
+(a batch's counters) and K8 (the GF(2) encode) one each on their own. The
+hash covers the source, the headers of ``csrc``, the flags and the
+library's own ``-D`` defines, so an edited source or header builds anew and
+one source can give several libraries (K5's schedule is baked in by
+defines).
 Nothing is compiled when a module is imported: the first launch builds, or
 :func:`build_all` does it up front (one ``nvcc`` per library, all started
 together). A library is named by its source, or by ``(source, defines)``.
@@ -38,7 +39,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 DEFAULT_BUILD_DIR = PKG_DIR.parent / "build" / "ldpc_tpu_torch"
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("mc_decoder", "llr_decoder", "qc_decoder", "roofline",
-           "qam_channel", "batch_counters")
+           "qam_channel", "batch_counters", "gf2_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 

@@ -10,7 +10,7 @@ time a batch than its device work needs. Two experiments:
    per batch binds, throughput rises with the batch until it amortizes.
 2. **Component isolation** at the production batch (4096, or the window
    where that is smaller): the step
-   (``torch.Generator`` info bits -> the encode GEMM -> K1 ``mc_decoder``
+   (``torch.Generator`` info bits -> the encode (K8) -> K1 ``mc_decoder``
    -> ``reduce_block_stats``), and the same step with K1 left out (stats
    derived from the codewords), each looped over a window of
    ``--window-codewords`` frames. Each window is timed twice: by the host's

@@ -11,7 +11,8 @@ QC code the K1 kernel takes, no interleaver, BPSK or the QPSK proxy, no
 shorten/puncture):
 
 1. random info bits (a ``torch.Generator`` seeded from (seed, point, batch));
-2. the systematic encode, one matrix product (ops.encode);
+2. the systematic encode (ops.encode): on the card one kernel, K8, that
+   writes the codewords on the minor axis;
 3. the fused Monte-Carlo kernel (ops.mc_kernels.MCDecoder): Philox noise
    keyed from (seed, point, batch), channel LLRs, the decode (phase 1 of a
    two-phase split, emitting its LLRs) and the error counts;
@@ -24,7 +25,7 @@ The unfused path (``:891-946``), for every other configuration; the batch's
 key splits into three generators (info bits, interleaver, channel):
 
 1. random info bits, the last S zeroed under shorten;
-2. the systematic encode into [B, n];
+2. the systematic encode into [B, n] (K8 on the card);
 3. interleave; the channel (ops.channel); deinterleave: for Gray QAM one
    kernel on the card, K6 (ops.qam_channel), from the same draws;
 4. punctured positions become erasures (``llr * mask``), shortened ones
@@ -83,6 +84,7 @@ from ldpc_tpu_torch.models.qc import paired_layer_groups
 from ldpc_tpu_torch.ops.channel import ChannelParams, make_channel_fn
 from ldpc_tpu_torch.ops.decode_loop import VARIANTS
 from ldpc_tpu_torch.ops.encode import (
+    ENCODE,
     make_encoder,
     make_encoder_T,
     random_info_bits,
@@ -1151,7 +1153,7 @@ def run_simulation(
     its ``batch`` axis; the counters equal an unmeshed run's.
     ``device=None`` means the card. With ``opts.profile``, the recorded
     spans and counters (:mod:`ldpc_tpu_torch.utils.timing`) and the
-    kernels' launch counts (K1-K3, K6, K7) go to ``<profile>/spans.json`` when
+    kernels' launch counts (K1-K3, K6-K8) go to ``<profile>/spans.json`` when
     the sweep ends."""
     with timing.span("run_simulation"):
         result = _sweep(opts, code, mesh, device)
@@ -1161,7 +1163,8 @@ def run_simulation(
             os.path.join(opts.profile, "spans.json"),
             launches={k.symbol: k.launches
                       for k in (MC_KERNEL, LLR_KERNEL, QC_KERNEL,
-                                QAM_CHANNEL, BATCH_COUNTERS, ADD_COUNTERS)})
+                                QAM_CHANNEL, BATCH_COUNTERS, ADD_COUNTERS,
+                                ENCODE)})
     return result
 
 
